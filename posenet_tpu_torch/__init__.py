@@ -1,0 +1,19 @@
+"""posenet-tpu-torch: the PyTorch + CUDA port of posenet_tpu.
+
+Multi-person pose estimation (MobileNetV1 PoseNet with the on-device
+multi-pose decoder) for NVIDIA GPUs, beside the JAX package it is held
+equal to. It imports torch and never jax.
+"""
+
+from posenet_tpu_torch.constants import *  # noqa: F401,F403
+from posenet_tpu_torch import constants, decode, decode_multi  # noqa: F401
+from posenet_tpu_torch.config import DecodeConfig, ModelConfig  # noqa: F401
+from posenet_tpu_torch.decode import DecodedPoses, decode_batch  # noqa: F401
+from posenet_tpu_torch.decode_multi import (decode_multiple_poses,  # noqa: F401
+                                            decode_multiple_poses_batch)
+from posenet_tpu_torch.models.model_factory import (MobileNetV1, PoseNet,  # noqa: F401
+                                                    load_model)
+from posenet_tpu_torch.models.mobilenet_v1 import MOBILENET_V1_CHECKPOINTS  # noqa: F401
+from posenet_tpu_torch.pipeline import PoseNetPipeline, infer  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,52 @@
+"""Model and decoder configuration, mirroring `posenet_tpu.config`.
+
+Same fields and defaults as the JAX package, with `compute_dtype` as a
+`torch.dtype`. The JAX package's TPU-only knobs (the Pallas switch, the
+two-stage top-K and the packed stem) have no counterpart: the port has one
+route for each of them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Backbone + heads configuration."""
+
+    model_id: int = 101            # one of {50, 75, 100, 101}
+    output_stride: int = 16        # one of {8, 16, 32}
+    # Trunk activation dtype. float32 is the parity mode; bfloat16 is the
+    # inference mode. The heads accumulate in float32 in both.
+    compute_dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.model_id not in (50, 75, 100, 101):
+            raise ValueError(f"model_id must be in {{50,75,100,101}}, got {self.model_id}")
+        if self.output_stride not in (8, 16, 32):
+            raise ValueError(f"output_stride must be in {{8,16,32}}, got {self.output_stride}")
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    """Multi-pose decoder knobs; defaults match the JAX package.
+
+    `max_candidates` bounds the candidate list statically: the decoder keeps
+    the top-K score-ranked local maxima.
+    """
+
+    max_pose_detections: int = 10
+    score_threshold: float = 0.5
+    nms_radius: int = 20
+    min_pose_score: float = 0.5
+    max_candidates: int = 128
+
+
+# Default on-disk model directory.
+MODEL_DIR = "./_models"

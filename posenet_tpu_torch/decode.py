@@ -1,0 +1,174 @@
+"""Batched multi-pose decoder (PersonLab-style greedy decoding) in PyTorch.
+
+The counterpart of `posenet_tpu.decode`, batched over images throughout:
+
+1. `_prepare_decode`: packed row tables, local-max NMS, the top-K
+   candidate list and each candidate's refined root coordinate.
+2. `ops.traversal.traverse_all_candidates`: every candidate's 17-keypoint
+   tree walk, in parallel (the CUDA kernel on the card).
+3. `_greedy_accept`: the sequential accept over the ranked candidates, as
+   exactly P rounds batched over images, with no host synchronisation.
+
+Every stage is static-shape, so a call queues device work and returns;
+nothing waits for the device until the caller reads a result.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from posenet_tpu_torch.config import DecodeConfig
+from posenet_tpu_torch.constants import (EDGES, LOCAL_MAXIMUM_RADIUS,
+                                         NUM_EDGES, NUM_KEYPOINTS)
+from posenet_tpu_torch.ops.nms import local_max_mask, top_k_candidates
+from posenet_tpu_torch.ops.traversal import traverse_all_candidates
+
+
+def _tree_levels():
+    """Group the 16 kinematic edges into dependency levels.
+
+    The tree is rooted at the nose with depth 4. Within one level no edge's
+    source is another's target, so walking a level's edges in one batch is
+    exactly the edge-by-edge walk. Returns (bwd_levels, fwd_levels), each a
+    list of levels of (edge_id, source_kp, target_kp).
+    """
+    depth = {0: 0}
+    for parent, child in EDGES.tolist():
+        depth[child] = depth[parent] + 1
+    bwd, fwd = {}, {}
+    for edge_id, (parent, child) in enumerate(EDGES.tolist()):
+        # backward: child -> parent, deepest child first
+        bwd.setdefault(depth[child], []).append((edge_id, child, parent))
+        # forward: parent -> child, shallowest parent first
+        fwd.setdefault(depth[parent], []).append((edge_id, parent, child))
+    bwd_levels = [bwd[d] for d in sorted(bwd, reverse=True)]
+    fwd_levels = [fwd[d] for d in sorted(fwd)]
+    return bwd_levels, fwd_levels
+
+
+_BWD_LEVELS, _FWD_LEVELS = _tree_levels()
+
+
+class DecodedPoses(NamedTuple):
+    """Fixed-size decode result, (B, P, ...); unfilled slots are zero."""
+
+    pose_scores: torch.Tensor       # (B, P)
+    keypoint_scores: torch.Tensor   # (B, P, 17)
+    keypoint_coords: torch.Tensor   # (B, P, 17, 2)  y, x image px
+    pose_offsets: torch.Tensor      # (B, P, 17, 2)
+    # (B,) int32: above-threshold local maxima BEFORE the top-K cut. More
+    # than max_candidates means the image decoded from a truncated pool.
+    candidate_count: Optional[torch.Tensor] = None
+
+    def overflowed(self, max_candidates: int) -> torch.Tensor:
+        """(B,) bool: did the candidate pool exceed the top-K budget?"""
+        if self.candidate_count is None:
+            raise ValueError("this DecodedPoses carries no candidate_count")
+        return self.candidate_count > max_candidates
+
+
+def _prepare_decode(heatmap, offsets, dfwd, dbwd, output_stride: int,
+                    cfg: DecodeConfig):
+    """Stage 1 on NHWC heads (B, H, W, C).
+
+    Returns (sov_table (B,HW,51), dfwd_table, dbwd_table (B,HW,32),
+    cand_scores (B,K), cand_kp (B,K) int32, root_coords (B,K,2),
+    candidate_count (B,) int32), the tables contiguous.
+    """
+    b, h, w, _ = heatmap.shape
+    sov_table = torch.cat([heatmap, offsets], dim=-1).reshape(
+        b, h * w, 3 * NUM_KEYPOINTS)
+    dfwd_table = dfwd.reshape(b, h * w, 2 * NUM_EDGES).contiguous()
+    dbwd_table = dbwd.reshape(b, h * w, 2 * NUM_EDGES).contiguous()
+
+    planes = heatmap.permute(0, 3, 1, 2)                         # (B,17,H,W)
+    mask = local_max_mask(planes, cfg.score_threshold, LOCAL_MAXIMUM_RADIUS)
+    n_cand = mask.sum(dim=(1, 2, 3), dtype=torch.int32)
+    cand_scores, cand_kp, cand_y, cand_x = top_k_candidates(
+        planes, mask, cfg.max_candidates)
+
+    # Root image coords: cell*stride + the root keypoint's offset there.
+    base = (cand_y * w + cand_x) * (3 * NUM_KEYPOINTS) + NUM_KEYPOINTS + cand_kp
+    flat = sov_table.reshape(b, -1)
+    off = torch.stack([flat.gather(1, base),
+                       flat.gather(1, base + NUM_KEYPOINTS)], dim=-1)
+    cand_cell = torch.stack([cand_y, cand_x], dim=-1).float()
+    root_coords = cand_cell * output_stride + off                # (B, K, 2)
+    return (sov_table, dfwd_table, dbwd_table, cand_scores,
+            cand_kp.to(torch.int32), root_coords, n_cand)
+
+
+def _greedy_accept(cand_scores, cand_kp, root_coords, all_scores, all_coords,
+                   all_offsets, cfg: DecodeConfig) -> DecodedPoses:
+    """Stage 3: greedy accept over the ranked candidates of each image.
+
+    Each round accepts, per image, the lowest-indexed candidate that is
+    valid, not within nms_radius of an accepted pose's same keypoint, and
+    whose overlap-discounted instance score passes min_pose_score. A
+    candidate's eligibility only falls as poses are accepted, so this is
+    the reference's per-candidate loop, and a round that accepts nothing
+    changes nothing: exactly P rounds equal the JAX package's while_loop.
+    """
+    b, k = cand_scores.shape
+    p = cfg.max_pose_detections
+    device = cand_scores.device
+    r2 = float(cfg.nms_radius ** 2)
+    slot_ids = torch.arange(p, device=device)
+    cand_ids = torch.arange(k, device=device)
+    batch_ids = torch.arange(b, device=device)
+    valid = cand_scores > -0.5                 # top-K sentinel is -1
+    kp_index = cand_kp.long()[:, None, :, None].expand(b, p, k, 2)
+    # A device tensor: CUDA divides by a CPU scalar as a multiply by its
+    # reciprocal, which is not IEEE division.
+    n_kp = torch.tensor(float(NUM_KEYPOINTS), device=device)
+
+    pose_scores = torch.zeros((b, p), device=device)
+    kp_scores = torch.zeros((b, p, NUM_KEYPOINTS), device=device)
+    kp_coords = torch.zeros((b, p, NUM_KEYPOINTS, 2), device=device)
+    pose_offsets = torch.zeros((b, p, NUM_KEYPOINTS, 2), device=device)
+    count = torch.zeros((b,), dtype=torch.long, device=device)
+
+    for _ in range(p):
+        occupied = slot_ids[None] < count[:, None]                # (B, P)
+        # Root NMS: accepted poses' coords at each candidate's root keypoint.
+        d = torch.gather(kp_coords, 2, kp_index) - root_coords[:, None]
+        d2_root = (d * d).sum(-1)                                 # (B, P, K)
+        root_sup = (occupied[:, :, None] & (d2_root <= r2)).any(1)
+
+        d = kp_coords[:, :, None] - all_coords[:, None]           # (B,P,K,17,2)
+        d2 = (d * d).sum(-1)
+        overlapped = (occupied[:, :, None, None] & (d2 <= r2)).any(1)
+        inst = torch.where(overlapped, 0.0, all_scores).sum(-1) / n_kp  # (B, K)
+
+        score_ok = (cfg.min_pose_score == 0.0) | (inst >= cfg.min_pose_score)
+        eligible = valid & ~root_sup & score_ok
+        accept = eligible.any(1) & (count < p)                    # (B,)
+        first = torch.where(eligible, cand_ids, k).argmin(1)      # lowest index
+
+        slot = (slot_ids[None] == count[:, None]) & accept[:, None]   # (B, P)
+        pose_scores = torch.where(slot, inst[batch_ids, first][:, None], pose_scores)
+        kp_scores = torch.where(slot[..., None],
+                                all_scores[batch_ids, first][:, None], kp_scores)
+        kp_coords = torch.where(slot[..., None, None],
+                                all_coords[batch_ids, first][:, None], kp_coords)
+        pose_offsets = torch.where(slot[..., None, None],
+                                   all_offsets[batch_ids, first][:, None], pose_offsets)
+        count = count + accept.long()
+    return DecodedPoses(pose_scores, kp_scores, kp_coords, pose_offsets)
+
+
+def decode_batch(heatmap, offsets, dfwd, dbwd, output_stride: int,
+                 cfg: DecodeConfig) -> DecodedPoses:
+    """Batched decode: NHWC heads (B, H, W, C) -> DecodedPoses (B, P, ...),
+    on the heads' device. The tree walk is the CUDA kernel for CUDA
+    tensors and its plain version for CPU tensors."""
+    h, w = heatmap.shape[1], heatmap.shape[2]
+    sov, dft, dbt, cand_scores, cand_kp, root_coords, n_cand = _prepare_decode(
+        heatmap, offsets, dfwd, dbwd, output_stride, cfg)
+    all_scores, all_coords, all_offsets = traverse_all_candidates(
+        cand_scores, cand_kp, root_coords, sov, dft, dbt, h, w, output_stride)
+    return _greedy_accept(cand_scores, cand_kp, root_coords, all_scores,
+                          all_coords, all_offsets, cfg)._replace(
+                              candidate_count=n_cand)

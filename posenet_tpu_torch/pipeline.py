@@ -1,0 +1,78 @@
+"""Fused inference: uint8 frames -> normalize -> backbone -> decode.
+
+The counterpart of `posenet_tpu.pipeline` on one device. A call queues the
+whole program on the device and returns `DecodedPoses` tensors there; the
+host waits only when the caller reads them. Not ported yet: the mesh
+(data and spatial partition), the on-device resize, the int8 trunk.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from posenet_tpu_torch.config import DecodeConfig, ModelConfig
+from posenet_tpu_torch.decode import DecodedPoses, decode_batch
+from posenet_tpu_torch.models import mobilenet_v1
+from posenet_tpu_torch.models.model_factory import PoseNet
+
+
+def normalize(frames_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8 -> [-1, 1] in `dtype`, as x * (2/255) - 1.
+
+    The scale is rounded to `dtype` before it multiplies, as the JAX
+    package's weak-typed 2/255 is; in bf16 a Python float would multiply
+    unrounded and give other values for 111 of the 256 inputs."""
+    scale = torch.tensor(2.0 / 255.0, dtype=dtype, device=frames_u8.device)
+    return frames_u8.to(dtype) * scale - 1.0
+
+
+def infer(params: Dict[str, Any], frames_u8: torch.Tensor, cfg: ModelConfig,
+          decode_cfg: DecodeConfig) -> DecodedPoses:
+    """(B, H, W, 3) uint8 RGB frames -> DecodedPoses (B, P, ...), on the
+    frames' device. `params` must be on that device, cast as
+    `mobilenet_v1.cast_params` does for `cfg.compute_dtype`."""
+    x = normalize(frames_u8, cfg.compute_dtype)
+    heads = mobilenet_v1.forward(params, x, cfg)
+    return decode_batch(
+        heads['heatmap'], heads['offset'], heads['displacement_fwd'],
+        heads['displacement_bwd'], cfg.output_stride, decode_cfg)
+
+
+class PoseNetPipeline:
+    """The fused program on one device.
+
+    Usage:
+        model = load_model(101, 16, allow_random_init=True, device='cuda',
+                           compute_dtype=torch.bfloat16)
+        pipe = PoseNetPipeline(model)
+        poses = pipe(frames_u8)   # (B, H, W, 3) uint8 RGB, H, W = stride*n + 1
+    """
+
+    def __init__(self, model: PoseNet,
+                 decode_cfg: DecodeConfig = DecodeConfig(min_pose_score=0.25),
+                 device: torch.device | str | None = None):
+        """`device`: where the program runs (None: the model's device). The
+        kernels are cast once here to the model's compute dtype."""
+        self.cfg = model.cfg
+        self.decode_cfg = decode_cfg
+        self.device = torch.device(device) if device is not None else model.device
+        self.params = mobilenet_v1.cast_params(
+            model.params, model.cfg.compute_dtype, self.device)
+
+    def __call__(self, frames_u8) -> DecodedPoses:
+        """Run forward + decode on a uint8 RGB frame batch (B, H, W, 3),
+        at the model resolution. Frames on another device are copied."""
+        frames = torch.as_tensor(frames_u8, device=self.device)
+        if frames.dtype != torch.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(f'expected (B, H, W, 3) uint8 frames, got '
+                             f'{tuple(frames.shape)} {frames.dtype}')
+        return infer(self.params, frames, self.cfg, self.decode_cfg)
+
+    def warmup(self, input_hw: Tuple[int, int], batch: int = 1):
+        """Run one batch of zeros (builds the CUDA kernels on first use) and
+        wait for it."""
+        dummy = torch.zeros((batch, *input_hw, 3), dtype=torch.uint8,
+                            device=self.device)
+        self(dummy).pose_scores.cpu()
