@@ -7,21 +7,34 @@ Phases, each printing its own line; any failure exits nonzero and prints
 no result:
 1. device: needs CUDA; prints the card's `name, power.limit` (nvidia-smi)
    and the torch / CUDA versions. TF32 is turned off (f32 parity mode).
-2. build: compiles the traversal kernel K1 (csrc/traversal.cu) with nvcc.
+2. build: compiles the traversal kernel K1 (csrc/traversal.cu) and the
+   fused sepconv kernel K2 (csrc/sepconv.cu), one nvcc each, in parallel.
 3. K1 against its plain PyTorch version on the card, bit for bit, at the
    main path's 33x33 stride-16 grid (B=8, K=128) and at 91x161 stride 8.
+   K2 against its plain version at B=2 at every (H, W, C_in, C_out) of
+   the m101 s16 513x513 trunk's K2 layers and at the C_in 16 and 24
+   layers of m50 and m75: each element within one bf16 ulp, or 2^-16.
 4. float32 parity on the card, fixture m50 s16 weights, synthesized photos:
    CUDA heads against CPU heads within 1e-4 of each head's scale; CUDA
    decode_batch (through K1) against CPU decode_batch (plain version) on
    the same heads: coordinates and keypoint scores bitwise, pose scores
-   within 2 ulp; and the whole slice on the card against it on the CPU.
+   within 2 ulp; the whole slice, and the raw-frame slice (480x640 BGR
+   resized on the device to 353x481), on the card against the CPU.
+   bf16 m101 s16 heads at 65x65 B=2, trunk through K2 on the card and
+   through its plain version on the CPU, within 2e-3.
 5. the main path: PoseNetPipeline over load_model(101, 16, bf16, random
    init) on 8 uint8 513x513 frames, then decode_batch on peaked heads.
-   Shapes, finite values, >=1 pose per peaked image, and K1's launch count
-   over exactly this run.
+   Shapes, finite values, >=1 pose per peaked image, K1's launch count and
+   K2's (9, one forward) over exactly this run. Then the raw-frame path
+   (device_resize_to=(513, 513)) on 16 BGR 720x1280 frames, with its own
+   counts: shapes, finite values, equal to preprocess -> forward -> decode
+   chained by hand.
 6. timing (CUDA events / synchronize-bracketed host clock): fused m101 s16
    513x513 b128 bf16 forward + peaked decode in img/s, best of 3 windows;
-   forward and decode alone; K1 against its plain version at B=128, K=128.
+   forward and decode alone; the raw-frame path from 720x1280 at b128 in
+   img/s; per K2 layer at b128, K2 against its plain version and against
+   the cuDNN conv pair the trunk ran before; K1 against its plain version
+   at B=128, K=128.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -42,13 +55,21 @@ from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.converter import weights
 from posenet_tpu_torch.decode import DecodedPoses, _prepare_decode, decode_batch
 from posenet_tpu_torch.models import mobilenet_v1
-from posenet_tpu_torch.ops import _build, traversal
-from posenet_tpu_torch.pipeline import infer, normalize
+from posenet_tpu_torch.ops import _build, sepconv, traversal
+from posenet_tpu_torch.pipeline import infer, infer_raw, normalize
+from posenet_tpu_torch.preprocess import preprocess_on_device
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'fixture_m50_s16.npz')
 K1_SOURCE = 'posenet_tpu_torch/csrc/traversal.cu'
 K1_REPLACES = 'posenet_tpu/ops/pallas/traversal.py:551'
+K2_SOURCE = 'posenet_tpu_torch/csrc/sepconv.cu'
+K2_REPLACES = 'posenet_tpu/ops/pallas/sepconv.py:228'
+# (H, W, C_in, C_out, K2 layers of one m101 s16 513x513 forward at this
+# shape), then the C_in 16 and 24 layers of m50 and m75 at 513x513.
+K2_M101_SHAPES = ((257, 257, 32, 64, 1), (129, 129, 128, 128, 1), (65, 65, 256, 256, 1),
+                  (33, 33, 512, 512, 5), (33, 33, 512, 1024, 1))
+K2_STEM_SHAPES = ((257, 257, 16, 32, 0), (257, 257, 24, 48, 0))
 
 
 def check(ok: bool, what: str):
@@ -146,6 +167,32 @@ def k1_against_plain(args, h, w, stride):
     return equal, err, int((ref[0] > 0).sum())
 
 
+def k2_inputs(b, h, w, c_in, c_out, seed, device):
+    """K2's arguments: activations in ReLU6's range, unit-gain weights."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.rand((b, h, w, c_in), generator=g, device=device) * 6).to(torch.bfloat16)
+    taps = sepconv.pack_depthwise(
+        torch.randn((c_in, 1, 3, 3), generator=g, device=device) * 0.4)
+    dw_b = torch.randn((c_in,), generator=g, device=device) * 0.3
+    pw_w = (torch.randn((c_out, c_in), generator=g, device=device)
+            / c_in ** 0.5).to(torch.bfloat16)
+    pw_b = torch.randn((c_out,), generator=g, device=device) * 0.3
+    return x, taps, dw_b, pw_w, pw_b
+
+
+def k2_against_plain(args):
+    """(within tolerance, max abs difference, share bitwise equal) of K2
+    against its plain version: each element within one bf16 ulp of the
+    plain value, or 2^-16 (tests/test_torch_sepconv.py)."""
+    got = sepconv.sepconv(*args).float()
+    torch.cuda.synchronize()
+    ref = sepconv.sepconv_reference(*args).float()
+    diff = (got - ref).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    ok = bool((diff <= ulp.clamp_min(2.0 ** -16)).all())
+    return ok, float(diff.max()), float((diff == 0).float().mean())
+
+
 def cuda_ms(fn, iters):
     """Mean device time of fn() over `iters` launches, by CUDA events."""
     for _ in range(3):
@@ -180,9 +227,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    lib = _build.build('traversal')
-    _build.load('traversal')
-    print(f'build: K1 {K1_SOURCE} -> {os.path.relpath(lib, REPO)} in '
+    libs = _build.build_all(['traversal', 'sepconv'])
+    for name in libs:
+        _build.load(name)
+    print(f'build: K1 {K1_SOURCE} -> {os.path.relpath(libs["traversal"], REPO)}, '
+          f'K2 {K2_SOURCE} -> {os.path.relpath(libs["sepconv"], REPO)} in '
           f'{time.perf_counter() - t0:.2f} s (nvcc {" ".join(_build.NVCC_FLAGS)})',
           flush=True)
 
@@ -199,6 +248,14 @@ def main() -> int:
         check(filled > b * k, f'K1 walk filled only {filled} keypoints at {h}x{w}')
         print(f'K1 vs plain: B={b} {h}x{w} s{stride} K={k}: bitwise equal '
               f'(tolerance 0), {filled} keypoints filled', flush=True)
+    k2_err = 0.0
+    for i, (h, w, c_in, c_out, _) in enumerate(K2_M101_SHAPES + K2_STEM_SHAPES):
+        ok, err, equal = k2_against_plain(k2_inputs(2, h, w, c_in, c_out, i, dev))
+        k2_err = max(k2_err, err)
+        check(ok, f'K2 differs from its plain version at B=2 {h}x{w} {c_in}->{c_out} '
+                  f'beyond one bf16 ulp (max {err})')
+        print(f'K2 vs plain: B=2 {h}x{w} {c_in}->{c_out}: within one bf16 ulp '
+              f'(or 2^-16), max abs {err:.3g}, share bitwise equal {equal:.6f}', flush=True)
 
     # 4. float32 parity on the card (fixture weights, synthesized photos)
     params = weights.load_params_npz(FIXTURE)
@@ -235,6 +292,37 @@ def main() -> int:
           f'keypoint scores bitwise, pose scores within 2 ulp; poses per image '
           f'{n_ref.tolist()}; whole slice CUDA vs CPU: coords {coord_err:.2g} px, '
           f'pose scores {score_err:.2g}', flush=True)
+    bgr = torch.from_numpy(np.stack([synth_photo(480, 640, 200 + i)[..., ::-1]
+                                     for i in range(2)]).copy())
+    raw = {name: infer_raw(weights.params_from_jax(params, d), bgr.to(d), (353, 481),
+                           cfg50, dcfg) for name, d in (('cpu', 'cpu'), ('cuda', dev))}
+    n_raw = (raw['cpu'].pose_scores > 0).sum(1)
+    check(bool((n_raw >= 1).all()), f'fixture raw-frame decode found no pose: {n_raw.tolist()}')
+    check(torch.equal((raw['cuda'].pose_scores > 0).sum(1).cpu(), n_raw),
+          'raw-frame slice on CUDA finds another pose count than on the CPU')
+    raw_coord = float((raw['cuda'].keypoint_coords.cpu() - raw['cpu'].keypoint_coords).abs().max())
+    raw_score = float((raw['cuda'].pose_scores.cpu() - raw['cpu'].pose_scores).abs().max())
+    check(raw_coord <= 1e-2 and raw_score <= 1e-4,
+          f'raw-frame slice on CUDA vs CPU: coords {raw_coord} px, pose scores {raw_score}')
+    print(f'f32 raw-frame slice, fixture m50 s16, 2 BGR 480x640 -> 353x481: CUDA vs CPU '
+          f'coords {raw_coord:.2g} px, pose scores {raw_score:.2g}; poses per image '
+          f'{n_raw.tolist()}', flush=True)
+
+    cfg_bf16 = ModelConfig(model_id=101, output_stride=16, compute_dtype=torch.bfloat16)
+    p101 = mobilenet_v1.init_params(torch.Generator().manual_seed(5), cfg_bf16)
+    x65 = torch.from_numpy(np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3))
+                           .astype(np.float32))
+    ref_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16), x65,
+                                    cfg_bf16)
+    sepconv.launches = 0
+    got_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16, dev),
+                                    x65.to(dev), cfg_bf16)
+    torch.cuda.synchronize()
+    gap = max(float((got_bf16[k].cpu() - ref_bf16[k]).abs().max()) for k in ref_bf16)
+    check(sepconv.launches == 9, f'bf16 m101 s16 forward launched K2 {sepconv.launches} times')
+    check(gap <= 2e-3, f'bf16 heads, K2 on CUDA vs plain on CPU: {gap} (limit 2e-3)')
+    print(f'bf16 heads m101 s16 2x65x65, trunk through K2 (CUDA) vs its plain version '
+          f'(CPU): within {gap:.3g} (limit 2e-3); K2 launches 9', flush=True)
 
     # 5. the main path: m101 s16 bf16, random init, 513x513
     model = load_model(101, 16, allow_random_init=True, device=dev,
@@ -246,12 +334,15 @@ def main() -> int:
     peaked8 = peaked_heads(8, 33, 7, dev)
     pipe.warmup((513, 513), batch=8)
     torch.cuda.synchronize()
-    traversal.launches = 0
+    traversal.launches = sepconv.launches = 0
     poses = pipe(frames8)
     peaked_poses = decode_batch(*peaked8, 16, pipe.decode_cfg)
     torch.cuda.synchronize()
     launches = traversal.launches
+    k2_launches = sepconv.launches
     check(launches >= 2, f'K1 launched {launches} times on the main path')
+    check(k2_launches == 9, f'K2 launched {k2_launches} times on the main path (one '
+                            f'm101 s16 forward has 9 stride-1 rate-1 separable layers)')
     for out in (poses, peaked_poses):
         check(tuple(out.keypoint_coords.shape) == (8, 10, 17, 2),
               f'keypoint_coords shape {tuple(out.keypoint_coords.shape)}')
@@ -264,7 +355,33 @@ def main() -> int:
                        'peaked decode CUDA vs CPU')
     print(f'main path: m101 s16 bf16 8x513x513 -> {tuple(poses.keypoint_coords.shape)}, '
           f'finite; peaked decode poses per image {per_image.tolist()} (equal to the '
-          f'CPU decode); K1 launches {launches}', flush=True)
+          f'CPU decode); K1 launches {launches}, K2 launches {k2_launches}', flush=True)
+
+    # 5b. the raw-frame path: BGR 720p frames resized on the device
+    raw_pipe = PoseNetPipeline(model, device_resize_to=(513, 513))
+    bgr16 = torch.randint(0, 256, (16, 720, 1280, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    raw_pipe.warmup((720, 1280), batch=16)
+    torch.cuda.synchronize()
+    traversal.launches = sepconv.launches = 0
+    raw_poses = raw_pipe(bgr16)
+    torch.cuda.synchronize()
+    raw_k1, raw_k2 = traversal.launches, sepconv.launches
+    check(raw_k1 >= 1 and raw_k2 == 9,
+          f'raw-frame path launched K1 {raw_k1} and K2 {raw_k2} times')
+    check(tuple(raw_poses.keypoint_coords.shape) == (16, 10, 17, 2),
+          f'raw keypoint_coords shape {tuple(raw_poses.keypoint_coords.shape)}')
+    check(all(bool(torch.isfinite(t.float()).all()) for t in raw_poses), 'non-finite raw output')
+    x_raw = preprocess_on_device(bgr16, (513, 513))
+    heads_raw = mobilenet_v1.forward(raw_pipe.params, x_raw, raw_pipe.cfg)
+    chained = decode_batch(heads_raw['heatmap'], heads_raw['offset'],
+                           heads_raw['displacement_fwd'], heads_raw['displacement_bwd'],
+                           16, raw_pipe.decode_cfg)
+    check(all(torch.equal(a, b) for a, b in zip(raw_poses, chained)),
+          'raw-frame path differs from preprocess -> forward -> decode chained by hand')
+    print(f'raw-frame path: m101 s16 bf16 16x720x1280 BGR -> 513x513 -> '
+          f'{tuple(raw_poses.keypoint_coords.shape)}, finite, bitwise equal to the '
+          f'hand-chained path; K1 launches {raw_k1}, K2 launches {raw_k2}', flush=True)
 
     # 6. timing at batch 128
     batch = 128
@@ -297,6 +414,56 @@ def main() -> int:
           f'{img_s:.1f} img/s (best of 3 windows of {n_iters}); forward {fwd_ms:.3f} ms, '
           f'peaked decode {dec_ms:.3f} ms, pipeline on its own heads {pipe_ms:.3f} ms '
           f'per batch', flush=True)
+    del frames
+    bgr = torch.randint(0, 256, (batch, 720, 1280, 3), generator=g, device=dev,
+                        dtype=torch.uint8)
+    raw_pipe(bgr)
+    torch.cuda.synchronize()
+    best = float('inf')
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            raw_pipe(bgr)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    raw_img_s = 5 * batch / best
+    pre_ms = cuda_ms(lambda: preprocess_on_device(bgr, (513, 513)), 5)
+    print(f'raw-frame path m101 s16 b{batch} bf16 from 720x1280 BGR: {raw_img_s:.1f} img/s '
+          f'(best of 3 windows of 5, decode on its own heads); preprocess alone '
+          f'{pre_ms:.3f} ms per batch', flush=True)
+    del bgr
+
+    k2_ms = k2_plain_ms = pair_ms = 0.0
+    for i, (h, w, c_in, c_out, count) in enumerate(K2_M101_SHAPES):
+        args = k2_inputs(batch, h, w, c_in, c_out, 100 + i, dev)
+        x, taps, dw_b, pw_w, pw_b = args
+        x_nchw = x.permute(0, 3, 1, 2)
+        dw_oihw = taps.t().reshape(c_in, 1, 3, 3).contiguous()
+        pw_oihw = pw_w.reshape(c_out, c_in, 1, 1)
+
+        def pair():
+            y = mobilenet_v1._conv_relu6(x_nchw, dw_oihw, dw_b, groups=c_in)
+            return mobilenet_v1._conv_relu6(y, pw_oihw, pw_b)
+
+        runs = {}
+        for name, fn, iters in (('plain', sepconv.sepconv_reference, 3),
+                                ('kernel', sepconv.sepconv, 20),
+                                ('cudnn', None, 20), ('cudnn', None, 20),
+                                ('kernel', sepconv.sepconv, 20),
+                                ('plain', sepconv.sepconv_reference, 3)):
+            call = pair if fn is None else (lambda fn=fn: fn(*args))
+            runs.setdefault(name, []).append(cuda_ms(call, iters))
+        ms = {k: sum(v) / len(v) for k, v in runs.items()}
+        k2_ms += count * ms['kernel']
+        k2_plain_ms += count * ms['plain']
+        pair_ms += count * ms['cudnn']
+        print(f'K2 layer b{batch} {h}x{w} {c_in}->{c_out} (x{count} a forward): kernel '
+              f'{ms["kernel"]:.4f} ms, plain {ms["plain"]:.4f} ms, cuDNN pair '
+              f'{ms["cudnn"]:.4f} ms (runs plain, kernel, cudnn, cudnn, kernel, plain: '
+              f'{runs})', flush=True)
+        del args, x, x_nchw
+    print(f'K2 over the 9 layers of one m101 s16 b{batch} forward: kernel {k2_ms:.4f} ms, '
+          f'plain {k2_plain_ms:.4f} ms, cuDNN pair {pair_ms:.4f} ms', flush=True)
 
     args = _prepare_decode(*peaked, 16, pipe.decode_cfg)[:6]
     equal, err, _ = k1_against_plain(args, 33, 33, 16)
@@ -315,10 +482,13 @@ def main() -> int:
     print(f'K1 at B={batch} K=128 33x33: kernel {k1_ms:.4f} ms, plain {plain_ms:.4f} ms '
           f'(runs plain, kernel, kernel, plain: {times})', flush=True)
 
-    print(json.dumps({'kernels': [{
-        'name': 'traverse_all_candidates', 'route': 'cuda', 'source': K1_SOURCE,
-        'replaces': K1_REPLACES, 'launches': launches, 'max_abs_err': max_err,
-        'ms': k1_ms, 'plain_ms': plain_ms}]}))
+    print(json.dumps({'kernels': [
+        {'name': 'traverse_all_candidates', 'route': 'cuda', 'source': K1_SOURCE,
+         'replaces': K1_REPLACES, 'launches': launches, 'max_abs_err': max_err,
+         'ms': k1_ms, 'plain_ms': plain_ms},
+        {'name': 'sepconv', 'route': 'cuda', 'source': K2_SOURCE,
+         'replaces': K2_REPLACES, 'launches': k2_launches, 'max_abs_err': k2_err,
+         'ms': k2_ms, 'plain_ms': k2_plain_ms}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

@@ -12,8 +12,13 @@ Two modes, set by `ModelConfig.compute_dtype`:
   (`torch.backends.cudnn.allow_tf32` and `torch.backends.cuda.matmul.allow_tf32`)
   or cuDNN rounds the convolutions' inputs to TF32.
 - bfloat16, the inference mode: bf16 activations and kernels between
-  layers, with each bias rounded to bf16 before it is added, as the JAX
-  package does.
+  layers. Every separable layer the stride plan leaves at stride 1 and
+  rate 1 runs as one fused block (`ops.sepconv`: the CUDA kernel K2 on the
+  card, its plain version on the CPU), which accumulates in float32 and
+  adds its biases in float32, as the TPU kernel it replaces does. The
+  other layers (conv0, the stride-2 and the dilated ones) run cuDNN convs
+  with each bias rounded to bf16 before it is added, as the JAX package's
+  trunk does.
 The heads accumulate in float32 in both modes.
 """
 
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from posenet_tpu_torch.config import ModelConfig
+from posenet_tpu_torch.ops import sepconv
 
 # Checkpoint names per depth multiplier.
 MOBILENET_V1_CHECKPOINTS = {
@@ -172,12 +178,17 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 def cast_params(params: Dict[str, Any], dtype: torch.dtype,
                 device: torch.device | str | None = None) -> Dict[str, Any]:
     """Kernels to `dtype`, biases float32 (they add into the float32
-    epilogue of the heads; the trunk rounds them to its dtype per call),
-    all on `device` (None: where they are)."""
+    epilogues of the heads and of the fused sepconv block; the cuDNN layers
+    round them to the trunk's dtype per call), all on `device` (None: where
+    they are). In bfloat16, each separable layer also gets 'dw_taps', its
+    depthwise kernel in the fused block's (9, C) layout."""
     def cast_layer(layer):
-        return {k: v.to(device=device,
-                        dtype=dtype if k in _KERNEL_KEYS else torch.float32)
-                for k, v in layer.items()}
+        out = {k: v.to(device=device,
+                       dtype=dtype if k in _KERNEL_KEYS else torch.float32)
+               for k, v in layer.items()}
+        if dtype == torch.bfloat16 and 'dw_w' in out:
+            out['dw_taps'] = sepconv.pack_depthwise(out['dw_w'])
+        return out
 
     return {
         'backbone': [cast_layer(l) for l in params['backbone']],
@@ -192,6 +203,25 @@ def _conv_relu6(x, w, b, *, stride=1, dilation=1, groups=1):
     return F.relu6(y)
 
 
+def _sepconv_relu6(x, p):
+    """One stride-1, rate-1 separable layer as the fused block, on the
+    NHWC memory of the channels_last tensor `x`; returns channels_last."""
+    c_in = x.shape[1]
+    taps = p.get('dw_taps')
+    if taps is None:   # parameters not cast by `cast_params`
+        taps = sepconv.pack_depthwise(p['dw_w'])
+    pw_w = p['pw_w'].to(torch.bfloat16).reshape(-1, c_in)
+    y = sepconv.sepconv(x.permute(0, 2, 3, 1), taps, p['dw_b'].float(), pw_w,
+                        p['pw_b'].float())
+    return y.permute(0, 3, 1, 2)
+
+
+def uses_sepconv(layer: Dict[str, Any], cfg: ModelConfig) -> bool:
+    """Whether the trunk runs this `stride_plan` layer as the fused block."""
+    return (cfg.compute_dtype == torch.bfloat16 and layer['conv_type'] == 'sep'
+            and layer['stride'] == 1 and layer['rate'] == 1)
+
+
 def run_trunk(params: Dict[str, Any], x_nhwc: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """The 14-layer trunk: NHWC input -> NCHW (channels_last) features in
@@ -202,6 +232,8 @@ def run_trunk(params: Dict[str, Any], x_nhwc: torch.Tensor,
         s, r = layer['stride'], layer['rate']
         if layer['conv_type'] == 'input':
             x = _conv_relu6(x, p['w'], p['b'], stride=s, dilation=r)
+        elif uses_sepconv(layer, cfg):
+            x = _sepconv_relu6(x, p)
         else:
             x = _conv_relu6(x, p['dw_w'], p['dw_b'], stride=s, dilation=r,
                             groups=x.shape[1])

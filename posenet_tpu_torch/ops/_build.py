@@ -13,14 +13,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict, Sequence
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG_DIR / 'csrc'
 BUILD_DIR = _PKG_DIR / '_build'
 
 # -fmad=false: no a*b+c contraction, so every product and sum rounds as in
-# the plain PyTorch versions (the decoder's cell math is bit-exact).
+# the plain PyTorch versions (the decoder's cell math is bit-exact; the
+# sepconv kernel's explicit fused multiply-adds are exact-product ones).
 # Division stays IEEE (nvcc's default -prec-div=true; no fast math).
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
@@ -45,7 +48,8 @@ def nvcc_path() -> str:
 
 def build(name: str) -> Path:
     """Compile `csrc/<name>.cu` unless the build of this source with these
-    flags is already there; returns the library's path."""
+    flags is already there; returns the library's path. Raises
+    RuntimeError, with nvcc's output, if the compile fails."""
     src = _SRC_DIR / f'{name}.cu'
     digest = hashlib.sha256(src.read_bytes())
     digest.update(' '.join(NVCC_FLAGS).encode())
@@ -53,10 +57,19 @@ def build(name: str) -> Path:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
-                       check=True)
+        done = subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {src.name} (exit {done.returncode}):\n'
+                               f'{done.stdout}{done.stderr}')
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """`build` for each name, one nvcc process each, all started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -121,7 +121,8 @@ def test_load_model_reads_checkpoint_or_raises(tmp_path):
 def test_port_never_imports_jax():
     """Importing the port (every module of it) leaves jax unloaded."""
     code = ("import sys, posenet_tpu_torch, posenet_tpu_torch.ops._build, "
-            "posenet_tpu_torch.ops.traversal, posenet_tpu_torch.pipeline; "
+            "posenet_tpu_torch.ops.traversal, posenet_tpu_torch.ops.sepconv, "
+            "posenet_tpu_torch.preprocess, posenet_tpu_torch.pipeline; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, '-c', code], cwd=REPO_ROOT, check=True,
