@@ -29,7 +29,25 @@ no result:
    (device_resize_to=(513, 513)) on 16 BGR 720x1280 frames, with its own
    counts: shapes, finite values, equal to preprocess -> forward -> decode
    chained by hand.
-6. timing (CUDA events / synchronize-bracketed host clock): fused m101 s16
+6. serving, m101 s16 bf16 513x513, min_pose_score 0 so that poses come
+   out: (a) export a `cuda` artifact at batch sizes (1, 8) with
+   `torch.export`, load it, and hold it bitwise to PoseNetPipeline on 8
+   frames, with K2 launched 9 times and K1 at least once by the loaded
+   program, and every K2 input a view of the previous layer, no copy;
+   (b) PoseServer over the artifact and over LivePipelineBackend on
+   127.0.0.1, 16 raw frames posted concurrently, each reply equal to the
+   in-process result for its frame at a served batch size, /healthz and
+   /statsz; (c) 720x1280 BGR frames resized on the host by
+   native_preprocess.resize_rgb (the native library where cv2 is absent),
+   ms a frame (and cv2's where present), posted raw and checked the same
+   way (the server's JPEG/PNG path needs cv2 and then resizes with it, so
+   it never reaches the native library); a host-clock breakdown of one
+   b32 chunk through the server's own steps, and its device busy time
+   (torch.profiler); (d) tools/serve_loadgen.py unchanged against the live
+   server at batch sizes (1, 8, 32), 32 clients for 10 s, at
+   pipeline_depth 2 and 1: req/s, p50/p99 latency, the batch histogram,
+   and the CPU seconds of the server process and of the load generator.
+7. timing (CUDA events / synchronize-bracketed host clock): fused m101 s16
    513x513 b128 bf16 forward + peaked decode in img/s, best of 3 windows;
    forward and decode alone; the raw-frame path from 720x1280 at b128 in
    img/s; per K2 layer at b128, K2 against its plain version and against
@@ -41,16 +59,23 @@ Then one JSON line describing the kernels, and as the last line
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
+import resource
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
-from posenet_tpu_torch import PoseNetPipeline, load_model
+from posenet_tpu_torch import PoseNetPipeline, load_model, native_preprocess
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.converter import weights
 from posenet_tpu_torch.decode import DecodedPoses, _prepare_decode, decode_batch
@@ -58,6 +83,9 @@ from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.ops import _build, sepconv, traversal
 from posenet_tpu_torch.pipeline import infer, infer_raw, normalize
 from posenet_tpu_torch.preprocess import preprocess_on_device
+from posenet_tpu_torch.server import (LivePipelineBackend, PoseServer, _Request,
+                                      make_http_server)
+from posenet_tpu_torch.serving import load_serving_artifact, save_serving_artifact
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'fixture_m50_s16.npz')
@@ -205,6 +233,266 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def post_raw(base, frames):
+    """POST each (H, W, 3) uint8 frame raw, all at once from one thread
+    each; returns the JSON replies in order."""
+    replies = [None] * len(frames)
+
+    def post(i):
+        req = urllib.request.Request(base + '/v1/decode', data=frames[i].tobytes(),
+                                     headers={'Content-Type': 'application/x-posenet-frame'})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            replies[i] = json.loads(r.read())
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(frames))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(all(r is not None for r in replies), 'a raw-frame request got no reply')
+    return replies
+
+
+def in_process_json(server, backend, frames):
+    """Per frame, the reply JSON the server would send at each served
+    batch size, from the backend called in-process on the same frames."""
+    plain = _Request(None, (1.0, 1.0), 0.0, 0.0)
+    expected = [dict() for _ in frames]
+    for b in server.batch_sizes:
+        for start in range(0, len(frames), b):
+            chunk = frames[start:start + b]
+            batch = np.zeros((b, *frames.shape[1:]), np.uint8)
+            batch[:len(chunk)] = chunk
+            out = backend(batch)
+            ps, ks, kc = (getattr(out, f).cpu().numpy()
+                          for f in ('pose_scores', 'keypoint_scores', 'keypoint_coords'))
+            for i in range(len(chunk)):
+                expected[start + i][b] = server._poses_json(ps[i], ks[i], kc[i], plain)
+    return expected
+
+
+def serve_and_check(backend, name, frames, what):
+    """PoseServer over `backend` on 127.0.0.1: `frames` posted raw at once,
+    each reply equal to the in-process result for its frame at one of the
+    served batch sizes; /healthz and /statsz read. Returns the batch
+    histogram."""
+    server = PoseServer(backend, batch_wait_ms=2.0)
+    server.warmup()
+    httpd = make_http_server(server, '127.0.0.1', 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f'http://127.0.0.1:{httpd.server_address[1]}'
+    try:
+        health = json.loads(urllib.request.urlopen(base + '/healthz', timeout=60).read())
+        check(health['ok'], f'{name} server /healthz not ok')
+        replies = post_raw(base, frames)
+        stats = json.loads(urllib.request.urlopen(base + '/statsz', timeout=60).read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    expected = in_process_json(server, backend, frames)
+    for i, reply in enumerate(replies):
+        check(reply['source_hw'] == list(frames.shape[1:3]), f'{name}: source_hw {reply}')
+        check(any(reply['poses'] == e for e in expected[i].values()),
+              f'{name} server: the reply for {what} {i} equals no in-process result')
+    poses = [len(r['poses']) for r in replies]
+    check(min(poses) >= 1, f'{name} server replied without poses: {poses}')
+    check(stats['requests_done'] == len(frames) and stats['errors'] == 0,
+          f'{name} server /statsz {stats}')
+    print(f'serving (b): {name} server, {len(frames)} {what}s posted raw at once: every reply '
+          f'equal to the in-process result for its frame; poses per reply {poses}; '
+          f'/statsz batches {stats["batches_by_size"]}, device_ms_total '
+          f'{stats["device_ms_total"]:.3f}', flush=True)
+    return stats['batches_by_size']
+
+
+def serving_phase(model, dev):
+    """Phase 6: export/load, serve raw frames, host resize, served timing."""
+    dcfg = DecodeConfig(min_pose_score=0.0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    frames8 = torch.randint(0, 256, (8, 513, 513, 3), generator=g, device=dev,
+                            dtype=torch.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) export, load, check
+        path = os.path.join(tmp, 'm101_s16_bf16.posenet')
+        t0 = time.perf_counter()
+        meta = save_serving_artifact(model, path, decode_cfg=dcfg, batch_sizes=(1, 8),
+                                     input_hw=(513, 513), platforms=('cuda',))
+        export_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 2 ** 20
+        art = load_serving_artifact(path)
+        check(art.device.type == 'cuda', f'artifact loaded on {art.device}')
+        pipe = PoseNetPipeline(model, dcfg)
+        t0 = time.perf_counter()
+        for b in (1, 8):
+            art(frames8[:b])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ref = pipe(frames8)
+        torch.cuda.synchronize()
+        traversal.launches = sepconv.launches = 0
+        out = art(frames8)
+        torch.cuda.synchronize()
+        k1, k2 = traversal.launches, sepconv.launches
+        check(k2 == 9 and k1 >= 1, f'the loaded artifact launched K1 {k1} and K2 {k2} times')
+        for f, a, b in zip(DecodedPoses._fields, out, ref):
+            check(torch.equal(a, b), f'artifact b8 differs from PoseNetPipeline in {f}')
+        for b in (1, 8):   # K2 reads the previous layer's output in place
+            made_by = [n.args[0].target for n in art._program(b).graph.nodes
+                       if n.target == torch.ops.posenet_tpu_torch.sepconv.default]
+            check(made_by == [torch.ops.aten.permute.default] * 9,
+                  f'b{b} program: the K2 inputs are made by {made_by}, not 9 views (permute)')
+        check(all(torch.equal(a, b) for a, b in zip(art(frames8[:1]), pipe(frames8[:1]))),
+              'artifact b1 differs from PoseNetPipeline')
+        n_poses = (out.pose_scores > 0).sum(1).tolist()
+        print(f'serving (a): export m101 s16 bf16 513x513 batches {meta["batch_sizes"]} '
+              f'platform cuda in {export_s:.2f} s, {size_mb:.2f} MiB; load + first call of '
+              f'both programs {load_s:.2f} s; loaded program bitwise equal to '
+              f'PoseNetPipeline at b8 and b1; K2 launches {k2} and K1 launches {k1} in one '
+              f'b8 call; every K2 input a view (permute), no copy, in both programs; '
+              f'poses per image {n_poses}', flush=True)
+
+        # (b) serve raw frames from the artifact and from the live pipeline
+        rng = np.random.default_rng(16)
+        raw16 = rng.integers(0, 256, (16, 513, 513, 3), dtype=np.uint8)
+        live = LivePipelineBackend(model, decode_cfg=dcfg, input_hw=(513, 513),
+                                   batch_sizes=(1, 8))
+        serve_and_check(art, 'artifact', raw16, 'raw frame')
+        serve_and_check(live, 'live', raw16, 'raw frame')
+
+        # (c) host resize on the card's host, then served raw
+        bgr = rng.integers(0, 256, (8, 720, 1280, 3), dtype=np.uint8)
+
+        def resize_all(backend):
+            t0 = time.perf_counter()
+            out = np.stack([native_preprocess.resize_rgb(f, (513, 513), backend) for f in bgr])
+            return out, (time.perf_counter() - t0) * 1000 / len(bgr)
+
+        has_cv2 = importlib.util.find_spec('cv2') is not None
+        saved = sys.modules.get('cv2')
+        sys.modules['cv2'] = None   # as on a host without cv2: 'auto' takes the library
+        try:
+            resize_all('auto')      # the first call builds the library
+            native, native_ms = resize_all('auto')
+        finally:
+            if saved is None:
+                del sys.modules['cv2']
+            else:
+                sys.modules['cv2'] = saved
+        check(np.array_equal(native, resize_all('native')[0]),
+              "resize_rgb 'auto' without cv2 is not the native library")
+        line = (f'serving (c): host resize 720x1280 BGR -> 513x513 RGB by '
+                f'native_preprocess.resize_rgb without cv2 (the native library): '
+                f'{native_ms:.3f} ms a frame (mean of {len(bgr)}, host clock)')
+        if has_cv2:
+            resize_all('cv2')       # the first call imports cv2
+            via_cv2, cv2_ms = resize_all('cv2')
+            lsb = int(np.abs(via_cv2.astype(int) - native).max())
+            check(lsb <= 1, f'native resize {lsb} LSB from cv2')
+            line += f'; cv2 is present here: {cv2_ms:.3f} ms a frame, within {lsb} LSB'
+        else:
+            line += '; cv2 is absent here'
+        print(line, flush=True)
+        serve_and_check(art, 'artifact', native, 'host-resized 720p frame')
+        del art
+
+    # (d) served timing: tools/serve_loadgen.py against the live server
+    serving_breakdown(model, dcfg)
+    for depth in (2, 1):
+        live = LivePipelineBackend(model, decode_cfg=dcfg, input_hw=(513, 513),
+                                   batch_sizes=(1, 8, 32))
+        server = PoseServer(live, batch_wait_ms=2.0, pipeline_depth=depth)
+        server.warmup()
+        httpd = make_http_server(server, '127.0.0.1', 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f'http://127.0.0.1:{httpd.server_address[1]}'
+        cpu0, kids0 = time.process_time(), resource.getrusage(resource.RUSAGE_CHILDREN)
+        try:
+            done = subprocess.run(
+                [sys.executable, os.path.join(REPO, 'tools', 'serve_loadgen.py'),
+                 '--base', base, '--clients', '32', '--seconds', '10'],
+                capture_output=True, text=True, timeout=300)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.close()
+        server_cpu = time.process_time() - cpu0
+        kids1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+        loadgen_cpu = (kids1.ru_utime + kids1.ru_stime) - (kids0.ru_utime + kids0.ru_stime)
+        stats = server.stats
+        check(done.returncode == 0, f'serve_loadgen failed: {done.stderr[-2000:]}')
+        result = json.loads(done.stdout.strip().splitlines()[-1])
+        check(result['requests'] > 0 and result['errors'] == 0, f'serve_loadgen: {result}')
+        print(f'serving (d): live m101 s16 bf16 513x513, batches (1, 8, 32), pipeline_depth '
+              f'{depth}, 32 clients, 10 s, raw frames: {result["req_per_s"]} req/s, latency '
+              f'p50 {result["latency_ms"]["p50"]} ms, p99 {result["latency_ms"]["p99"]} ms; '
+              f'batches {result["batches_by_size"]}; server device_ms (dispatch to fetched) '
+              f'{stats["device_ms_total"] / max(1, sum(stats["batches_by_size"].values())):.3f}'
+              f' ms a batch; CPU seconds, server process {server_cpu:.2f} and serve_loadgen '
+              f'{loadgen_cpu:.2f} (its start-up included) (serve_loadgen: '
+              f'{json.dumps(result)})', flush=True)
+
+
+def serving_breakdown(model, dcfg, batch=32, reps=5):
+    """Host clock of one b32 chunk through the server's own steps, called
+    one at a time in this thread while its worker idles: `_dispatch_chunk`
+    (pinned staging, then the backend call that queues the launches, timed
+    apart), `_finish_chunk` (the one fetch wait, then the reply dicts), and
+    json.dumps of each reply as the HTTP handler sends it."""
+    live = LivePipelineBackend(model, decode_cfg=dcfg, input_hw=(513, 513),
+                               batch_sizes=(batch,))
+    server = PoseServer(live)
+    backend_s = []
+
+    def timed_backend(frames):
+        t0 = time.perf_counter()
+        out = live(frames)
+        backend_s.append(time.perf_counter() - t0)
+        return out
+
+    server.artifact = timed_backend
+    frames = np.random.default_rng(32).integers(0, 256, (batch, 513, 513, 3), dtype=np.uint8)
+    steps = {'_dispatch_chunk': [], '_finish_chunk': [], 'json.dumps': []}
+    try:
+        for rep in range(reps + 1):
+            reqs = [_Request(f, (1.0, 1.0), 0.0, 0.0) for f in frames]
+            t = [time.perf_counter()]
+            inflight = server._dispatch_chunk(reqs, batch)
+            t.append(time.perf_counter())
+            check(inflight is not None, f'the breakdown chunk failed: {reqs[0].error}')
+            server._finish_chunk(inflight)
+            t.append(time.perf_counter())
+            for r in reqs:
+                json.dumps({'poses': r.result, 'source_hw': [513, 513]})
+            t.append(time.perf_counter())
+            check(all(r.error is None for r in reqs), f'the breakdown chunk: {reqs[0].error}')
+            if rep:   # the first repetition warms up
+                for times, a, b in zip(steps.values(), t, t[1:]):
+                    times.append((b - a) * 1000)
+        # The device's busy time in one chunk: the union of its kernel and
+        # copy intervals under torch.profiler.
+        reqs = [_Request(f, (1.0, 1.0), 0.0, 0.0) for f in frames]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            server._finish_chunk(server._dispatch_chunk(reqs, batch))
+        busy_us, end = 0.0, float('-inf')
+        for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                                  if e.device_type == DeviceType.CUDA):
+            if stop > end:
+                busy_us += stop - max(start, end)
+                end = stop
+    finally:
+        server.close()
+    ms = {k: sum(v) / len(v) for k, v in steps.items()}
+    call_ms = sum(backend_s[1:reps + 1]) * 1000 / reps
+    print(f'serving breakdown, live m101 s16 bf16 b{batch}, the server\'s steps, host clock, '
+          f'mean of {reps}: _dispatch_chunk {ms["_dispatch_chunk"]:.3f} ms (staging '
+          f'{ms["_dispatch_chunk"] - call_ms:.3f}, backend call {call_ms:.3f}), _finish_chunk '
+          f'(fetch wait + reply dicts) {ms["_finish_chunk"]:.3f} ms, json.dumps '
+          f'{ms["json.dumps"]:.3f} ms; total {sum(ms.values()):.3f} ms = '
+          f'{sum(ms.values()) / batch:.3f} ms a request; device busy {busy_us / 1000:.3f} ms '
+          f'a chunk (torch.profiler, union of kernels and copies)', flush=True)
 
 
 def main() -> int:
@@ -383,7 +671,10 @@ def main() -> int:
           f'{tuple(raw_poses.keypoint_coords.shape)}, finite, bitwise equal to the '
           f'hand-chained path; K1 launches {raw_k1}, K2 launches {raw_k2}', flush=True)
 
-    # 6. timing at batch 128
+    # 6. serving
+    serving_phase(model, dev)
+
+    # 7. timing at batch 128
     batch = 128
     frames = torch.randint(0, 256, (batch, 513, 513, 3), generator=g, device=dev,
                            dtype=torch.uint8)

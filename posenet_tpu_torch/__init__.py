@@ -14,8 +14,15 @@ from posenet_tpu_torch.decode_multi import (decode_multiple_poses,  # noqa: F401
 from posenet_tpu_torch.models.model_factory import (MobileNetV1, PoseNet,  # noqa: F401
                                                     load_model)
 from posenet_tpu_torch.models.mobilenet_v1 import MOBILENET_V1_CHECKPOINTS  # noqa: F401
-from posenet_tpu_torch.pipeline import PoseNetPipeline, infer, infer_raw  # noqa: F401
+from posenet_tpu_torch.pipeline import (PoseNetPipeline, infer,  # noqa: F401
+                                        infer_raw, to_device)
 from posenet_tpu_torch.preprocess import (preprocess_on_device,  # noqa: F401
+                                          process_input, process_input_fixed,
+                                          read_cap, read_imgfile,
                                           valid_resolution)
+from posenet_tpu_torch.server import LivePipelineBackend, PoseServer  # noqa: F401
+from posenet_tpu_torch.serving import (ServingArtifact,  # noqa: F401
+                                       load_serving_artifact,
+                                       save_serving_artifact)
 
 __version__ = "0.1.0"

@@ -15,7 +15,7 @@ nothing waits for the device until the caller reads a result.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,6 +61,16 @@ class DecodedPoses(NamedTuple):
     # (B,) int32: above-threshold local maxima BEFORE the top-K cut. More
     # than max_candidates means the image decoded from a truncated pool.
     candidate_count: Optional[torch.Tensor] = None
+
+    def as_tuple(self) -> Tuple[Optional[torch.Tensor], ...]:
+        """The fields as a plain tuple: what an exported serving program
+        returns, because `torch.export.save` serializes no NamedTuple."""
+        return tuple(self)
+
+    @classmethod
+    def from_tuple(cls, values) -> 'DecodedPoses':
+        """The inverse of `as_tuple`, for the loader of such a program."""
+        return cls(*values)
 
     def overflowed(self, max_candidates: int) -> torch.Tensor:
         """(B,) bool: did the candidate pool exceed the top-K budget?"""

@@ -1,18 +1,23 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each `csrc/<name>.cu` exposes a plain C interface. At first use it is
 compiled with nvcc into `posenet_tpu_torch/_build/<name>-<hash>.so`, keyed
 by a hash of the source and the flags, and loaded with ctypes; later calls
-in the process reuse the loaded library. Nothing here runs at import time.
+in the process reuse the loaded library. Host C++ sources (the repo's
+`native/preprocess.cpp`) are built the same way with the host compiler
+(`build_host`), keyed also by the CPU target that `-march=native` resolves
+to. Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence
@@ -27,6 +32,11 @@ BUILD_DIR = _PKG_DIR / '_build'
 # Division stays IEEE (nvcc's default -prec-div=true; no fast math).
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
+# The flags of native/Makefile (CXXFLAGS, then LDFLAGS). -march=native ties
+# a build to the CPU it was made on, so the key of a host build also holds
+# what it resolves to (`host_target`).
+HOST_CXX_FLAGS = ('-O3', '-march=native', '-fPIC', '-std=c++17', '-Wall',
+                  '-shared', '-pthread')
 
 _loaded: dict = {}
 
@@ -46,24 +56,58 @@ def nvcc_path() -> str:
         'kernels are built from source at first use')
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless the build of this source with these
-    flags is already there; returns the library's path. Raises
-    RuntimeError, with nvcc's output, if the compile fails."""
-    src = _SRC_DIR / f'{name}.cu'
+def cxx_path() -> str:
+    """The host C++ compiler (g++, else c++) from PATH. Raises if there is
+    none."""
+    found = shutil.which('g++') or shutil.which('c++')
+    if found:
+        return found
+    raise RuntimeError('no host C++ compiler (g++ or c++) on PATH: the native '
+                       'host library is built from source at first use')
+
+
+@functools.lru_cache(maxsize=None)
+def host_target(compiler: str) -> str:
+    """The target options `-march=native` resolves to on this machine, as
+    the compiler reports them (`-Q --help=target`, GCC's query)."""
+    done = subprocess.run([compiler, '-march=native', '-Q', '--help=target'],
+                          capture_output=True, text=True)
+    return done.stdout + done.stderr
+
+
+def _compile(src: Path, name: str, compiler: str, flags: Sequence[str],
+             target: str = '') -> Path:
+    """Compile `src` into `_build/<name>-<hash>.so` unless the build of this
+    source with these flags for this `target` is already there; returns the
+    library's path. Raises RuntimeError, with the compiler's output, if the
+    compile fails."""
     digest = hashlib.sha256(src.read_bytes())
-    digest.update(' '.join(NVCC_FLAGS).encode())
+    digest.update(' '.join(flags).encode())
+    digest.update(target.encode())
     out = BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        done = subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
+        tmp = out.with_suffix(f'.{os.getpid()}.{threading.get_ident()}.tmp')
+        done = subprocess.run([compiler, *flags, '-o', str(tmp), str(src)],
                               capture_output=True, text=True)
         if done.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {src.name} (exit {done.returncode}):\n'
-                               f'{done.stdout}{done.stderr}')
+            raise RuntimeError(f'{os.path.basename(compiler)} failed on {src.name} '
+                               f'(exit {done.returncode}):\n{done.stdout}{done.stderr}')
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` with nvcc (see `_compile`)."""
+    return _compile(_SRC_DIR / f'{name}.cu', name, nvcc_path(), NVCC_FLAGS)
+
+
+def build_host(src: Path) -> Path:
+    """Compile the host C++ source `src` with `HOST_CXX_FLAGS` for this
+    machine's CPU (see `_compile`, `host_target`); the library is named
+    after the source's stem."""
+    cxx = cxx_path()
+    return _compile(src, src.stem, cxx, HOST_CXX_FLAGS, host_target(cxx))
 
 
 def build_all(names: Sequence[str]) -> Dict[str, Path]:

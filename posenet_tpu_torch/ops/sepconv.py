@@ -17,6 +17,10 @@ kernel's bit for bit; the pointwise is a float32 product of bf16 values,
 which differs from the kernel's tensor-core sum only in the order of its
 float32 additions.
 
+The kernel is registered as the custom op `posenet_tpu_torch::sepconv`
+(CUDA only, with a fake implementation for `torch.export`), so that an
+exported program keeps it.
+
 Shapes: x (B,H,W,C_in) bf16, NHWC-contiguous (the trunk's channels_last
 NCHW tensor, permuted, is that memory); dw_taps (9,C_in) bf16, tap
 dy*3+dx (`pack_depthwise`); dw_b (C_in,) f32; pw_w (C_out,C_in) bf16;
@@ -31,10 +35,12 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from posenet_tpu_torch.ops import _build
 
-# Kernel launches made by `sepconv` in this process.
+# Kernel launches in this process, counted where the custom op launches,
+# so that launches from a loaded `torch.export` program count too.
 launches = 0
 
 MAX_CHANNELS = 1024
@@ -89,11 +95,13 @@ def _check_inputs(x, dw_taps, dw_b, pw_w, pw_b):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f'{name}: expected {shape} {dtype}, got '
                              f'{tuple(t.shape)} {t.dtype}')
-        if not t.is_contiguous():
+        # A FakeTensor's strides (under `torch.export`) are the tracer's
+        # guess of a convolution's layout, which on CUDA differs from the
+        # channels_last memory the card's convolution writes; the op checks
+        # the real memory when it runs.
+        if not t.is_contiguous() and not is_fake(t):
             raise ValueError(f'{name} must be contiguous (x: NHWC memory, as a '
                              f'channels_last NCHW tensor permuted to NHWC)')
-        if t.data_ptr() % 16:
-            raise ValueError(f'{name} must be 16-byte aligned')
 
 
 _kernel_cache: dict = {}
@@ -110,16 +118,36 @@ def _kernel():
 
 
 def sepconv(x_nhwc, dw_taps, dw_b, pw_w, pw_b) -> torch.Tensor:
-    """The fused block. CPU tensors take the plain version. CUDA tensors
-    launch the kernel on the current stream (no synchronisation), or
-    raise."""
-    global launches
+    """The fused block. CPU tensors take the plain version. CUDA tensors go
+    through the custom op `posenet_tpu_torch::sepconv`, which launches the
+    kernel on the current stream (no synchronisation) or raises; under
+    `torch.export` the op stays in the graph as one node."""
     _check_inputs(x_nhwc, dw_taps, dw_b, pw_w, pw_b)
     device = x_nhwc.device
     if device.type == 'cpu':
         return sepconv_reference(x_nhwc, dw_taps, dw_b, pw_w, pw_b)
     if device.type != 'cuda':
         raise ValueError(f'no sepconv for device {device}')
+    return torch.ops.posenet_tpu_torch.sepconv(x_nhwc, dw_taps, dw_b, pw_w, pw_b)
+
+
+@torch.library.custom_op(
+    'posenet_tpu_torch::sepconv', mutates_args=(), device_types='cuda',
+    schema='(Tensor x_nhwc, Tensor dw_taps, Tensor dw_b, Tensor pw_w, '
+           'Tensor pw_b) -> Tensor')
+def _sepconv_cuda(x_nhwc, dw_taps, dw_b, pw_w, pw_b):
+    """K2 on real CUDA tensors: one launch, counted. The wrapper checks
+    shapes and dtypes; a loaded `torch.export` program calls the op
+    directly, so the layout the kernel's pointers assume is checked here
+    again, with the alignment, which reads pointers a FakeTensor has not."""
+    global launches
+    for name, t in (('x', x_nhwc), ('dw_taps', dw_taps), ('dw_b', dw_b),
+                    ('pw_w', pw_w), ('pw_b', pw_b)):
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous (x: NHWC memory)')
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned')
+    device = x_nhwc.device
     b, h, w, c_in = x_nhwc.shape
     c_out = pw_w.shape[0]
     out = torch.empty((b, h, w, c_out), dtype=torch.bfloat16, device=device)
@@ -132,3 +160,10 @@ def sepconv(x_nhwc, dw_taps, dw_b, pw_w, pw_b) -> torch.Tensor:
         raise RuntimeError(f'sepconv kernel launch failed: cudaError {err}')
     launches += 1
     return out
+
+
+@_sepconv_cuda.register_fake
+def _sepconv_fake(x_nhwc, dw_taps, dw_b, pw_w, pw_b):
+    """The plain version's shape and dtype."""
+    b, h, w, _ = x_nhwc.shape
+    return x_nhwc.new_empty((b, h, w, pw_w.shape[0]), dtype=torch.bfloat16)

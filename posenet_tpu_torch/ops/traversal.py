@@ -11,7 +11,9 @@ bandwidth or arithmetic (see the kernel source).
 `traverse_all_candidates_reference` is the plain PyTorch version, a port of
 the JAX package's level-batched gather walk (`decode._traverse_all_candidates`).
 CPU tensors go through it; the tests and `chip_smoke.py` hold the kernel
-to it bit for bit.
+to it bit for bit. The kernel is registered as the custom op
+`posenet_tpu_torch::traverse_all_candidates` (CUDA only, with a fake
+implementation for `torch.export`), so that an exported program keeps it.
 
 Shapes: cand_scores (B,K) f32, cand_kp (B,K) int32, root_coords (B,K,2)
 f32, sov_table (B,H*W,51) f32 = [scores || off-y || off-x], dfwd_table and
@@ -30,7 +32,8 @@ import torch
 from posenet_tpu_torch.constants import NUM_EDGES, NUM_KEYPOINTS
 from posenet_tpu_torch.ops import _build
 
-# Kernel launches made by `traverse_all_candidates` in this process.
+# Kernel launches in this process, counted where the custom op launches,
+# so that launches from a loaded `torch.export` program count too.
 launches = 0
 
 _SOV_COLS = 3 * NUM_KEYPOINTS
@@ -157,9 +160,10 @@ def traverse_all_candidates(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The tree walk for every candidate of every image.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream (no synchronisation), or raise."""
-    global launches
+    CPU tensors take the plain version. CUDA tensors go through the custom
+    op `posenet_tpu_torch::traverse_all_candidates`, which launches the
+    kernel on the current stream (no synchronisation) or raises; under
+    `torch.export` the op stays in the graph as one node."""
     device = cand_scores.device
     if device.type == 'cpu':
         return traverse_all_candidates_reference(
@@ -169,6 +173,30 @@ def traverse_all_candidates(
         raise ValueError(f'no traversal for device {device}')
     _check_inputs(cand_scores, cand_kp, root_coords, sov_table, dfwd_table,
                   dbwd_table, h, w)
+    return tuple(torch.ops.posenet_tpu_torch.traverse_all_candidates(
+        cand_scores, cand_kp, root_coords, sov_table, dfwd_table, dbwd_table,
+        h, w, output_stride))
+
+
+@torch.library.custom_op(
+    'posenet_tpu_torch::traverse_all_candidates', mutates_args=(),
+    device_types='cuda',
+    schema='(Tensor cand_scores, Tensor cand_kp, Tensor root_coords, '
+           'Tensor sov_table, Tensor dfwd_table, Tensor dbwd_table, int h, '
+           'int w, int output_stride) -> (Tensor, Tensor, Tensor)')
+def _traverse_cuda(cand_scores, cand_kp, root_coords, sov_table, dfwd_table,
+                   dbwd_table, h, w, output_stride):
+    """K1 on real CUDA tensors: one launch, counted. The wrapper checks
+    shapes and dtypes; a loaded `torch.export` program calls the op
+    directly, so the layout the kernel's pointers assume is checked here
+    again."""
+    global launches
+    for name, t in (('cand_scores', cand_scores), ('cand_kp', cand_kp),
+                    ('root_coords', root_coords), ('sov_table', sov_table),
+                    ('dfwd_table', dfwd_table), ('dbwd_table', dbwd_table)):
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    device = cand_scores.device
     b, k = cand_scores.shape
     kp_scores = torch.empty((b, k, NUM_KEYPOINTS), dtype=torch.float32, device=device)
     kp_coords = torch.empty((b, k, NUM_KEYPOINTS, 2), dtype=torch.float32, device=device)
@@ -185,3 +213,12 @@ def traverse_all_candidates(
         raise RuntimeError(f'traversal kernel launch failed: cudaError {err}')
     launches += 1
     return kp_scores, kp_coords, kp_offsets
+
+
+@_traverse_cuda.register_fake
+def _traverse_fake(cand_scores, cand_kp, root_coords, sov_table, dfwd_table,
+                   dbwd_table, h, w, output_stride):
+    """The plain version's shapes and dtypes."""
+    b, k = cand_scores.shape
+    coords = cand_scores.new_empty((b, k, NUM_KEYPOINTS, 2))
+    return cand_scores.new_empty((b, k, NUM_KEYPOINTS)), coords, torch.empty_like(coords)

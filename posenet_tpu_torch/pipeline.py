@@ -31,6 +31,26 @@ def normalize(frames_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return frames_u8.to(dtype) * scale - 1.0
 
 
+def to_device(frames_u8, device: torch.device) -> torch.Tensor:
+    """A frame batch (numpy array or tensor) as a tensor on `device`.
+
+    A host batch bound for a CUDA device is staged in pinned memory (unless
+    it is pinned already) and copied with `non_blocking=True`. A copy from
+    pageable memory would make the host wait until the stream reaches it,
+    that is, until the device has finished the work queued before it, so a
+    server could not queue batch N+1 while batch N runs. PyTorch's pinned
+    allocator keeps the staging buffer from reuse until the copy is done."""
+    frames = torch.as_tensor(frames_u8)
+    if frames.device == device:
+        return frames
+    if device.type == 'cuda' and frames.device.type == 'cpu':
+        if not frames.is_pinned():
+            frames = torch.empty(frames.shape, dtype=frames.dtype,
+                                 pin_memory=True).copy_(frames)
+        return frames.to(device, non_blocking=True)
+    return frames.to(device)
+
+
 def infer(params: Dict[str, Any], frames_u8: torch.Tensor, cfg: ModelConfig,
           decode_cfg: DecodeConfig) -> DecodedPoses:
     """(B, H, W, 3) uint8 RGB frames -> DecodedPoses (B, P, ...), on the
@@ -95,7 +115,8 @@ class PoseNetPipeline:
 
     def __call__(self, frames_u8) -> DecodedPoses:
         """Run forward + decode on a uint8 frame batch (B, H, W, 3). Frames
-        on another device are copied.
+        on another device are copied (`to_device`: host frames for a CUDA
+        device without waiting for the device).
 
         The input colour order flips with `device_resize_to`:
           * default: RGB frames at the model resolution (what host
@@ -105,7 +126,7 @@ class PoseNetPipeline:
             device.
         Frames in the wrong order raise no error but lower the pose scores.
         """
-        frames = torch.as_tensor(frames_u8, device=self.device)
+        frames = to_device(frames_u8, self.device)
         if frames.dtype != torch.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
             raise ValueError(f'expected (B, H, W, 3) uint8 frames, got '
                              f'{tuple(frames.shape)} {frames.dtype}')

@@ -122,7 +122,9 @@ def test_port_never_imports_jax():
     """Importing the port (every module of it) leaves jax unloaded."""
     code = ("import sys, posenet_tpu_torch, posenet_tpu_torch.ops._build, "
             "posenet_tpu_torch.ops.traversal, posenet_tpu_torch.ops.sepconv, "
-            "posenet_tpu_torch.preprocess, posenet_tpu_torch.pipeline; "
+            "posenet_tpu_torch.preprocess, posenet_tpu_torch.pipeline, "
+            "posenet_tpu_torch.server, posenet_tpu_torch.serving, "
+            "posenet_tpu_torch.native_preprocess; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, '-c', code], cwd=REPO_ROOT, check=True,
