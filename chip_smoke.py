@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase: what a run must pass
+    python3 chip_smoke.py --only k2   # device, build, K2's checks and timing
 
 Phases, each printing its own line; any failure exits nonzero and prints
 no result:
@@ -11,9 +12,12 @@ no result:
    fused sepconv kernel K2 (csrc/sepconv.cu), one nvcc each, in parallel.
 3. K1 against its plain PyTorch version on the card, bit for bit, at the
    main path's 33x33 stride-16 grid (B=8, K=128) and at 91x161 stride 8.
-   K2 against its plain version at B=2 at every (H, W, C_in, C_out) of
-   the m101 s16 513x513 trunk's K2 layers and at the C_in 16 and 24
-   layers of m50 and m75: each element within one bf16 ulp, or 2^-16.
+   K2 against its plain version at B=2 at every (H, W, C_in, C_out) that
+   a K2 layer of the four models has at 513x513 (17x17 1024->1024, m101
+   s32's last, is the BM = 64 path), and at B=1 9x9 512->512 (one block,
+   a ragged pixel tile): each element within one bf16 ulp, or 2^-16. K2's
+   pointwise alone (identity depthwise) on one 64x128x64 product against
+   torch.matmul, to the same tolerance.
 4. float32 parity on the card, fixture m50 s16 weights, synthesized photos:
    CUDA heads against CPU heads within 1e-4 of each head's scale; CUDA
    decode_batch (through K1) against CPU decode_batch (plain version) on
@@ -50,15 +54,25 @@ no result:
 7. timing (CUDA events / synchronize-bracketed host clock): fused m101 s16
    513x513 b128 bf16 forward + peaked decode in img/s, best of 3 windows;
    forward and decode alone; the raw-frame path from 720x1280 at b128 in
-   img/s; per K2 layer at b128, K2 against its plain version and against
-   the cuDNN conv pair the trunk ran before; K1 against its plain version
-   at B=128, K=128.
+   img/s; per K2 layer at b128, K2 held to its plain version (one bf16
+   ulp, or 2^-16) and then timed against it and against the cuDNN conv
+   pair the trunk ran before, beside its bound; K1 against its plain
+   version at B=128, K=128, beside its bound (the hops that fetch in this
+   run's walk).
 Then one JSON line describing the kernels, and as the last line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. `--only k2` runs phases 1, 2, K2's part of
+3, the bf16 trunk check of 4 and K2's per-layer timing of 7, then the
+same two lines (K2's entry; its `launches` from the trunk check, as
+`launches_from` says).
+
+Bounds (`bound_ms`) are the larger of bytes / 3.35 TB/s and operations /
+the peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
+f32), the H100 SXM's published rates at 700 W.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import os
@@ -78,7 +92,8 @@ from torch.profiler import ProfilerActivity, profile
 from posenet_tpu_torch import PoseNetPipeline, load_model, native_preprocess
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.converter import weights
-from posenet_tpu_torch.decode import DecodedPoses, _prepare_decode, decode_batch
+from posenet_tpu_torch.decode import (_BWD_LEVELS, _FWD_LEVELS, DecodedPoses, _prepare_decode,
+                                     decode_batch)
 from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.ops import _build, sepconv, traversal
 from posenet_tpu_torch.pipeline import infer, infer_raw, normalize
@@ -94,10 +109,18 @@ K1_REPLACES = 'posenet_tpu/ops/pallas/traversal.py:551'
 K2_SOURCE = 'posenet_tpu_torch/csrc/sepconv.cu'
 K2_REPLACES = 'posenet_tpu/ops/pallas/sepconv.py:228'
 # (H, W, C_in, C_out, K2 layers of one m101 s16 513x513 forward at this
-# shape), then the C_in 16 and 24 layers of m50 and m75 at 513x513.
+# shape), then the other K2 layers of the four models at 513x513: the
+# C_in 16 and 24 stems of m50 and m75, m101 s32's last (the BM = 64 path),
+# and the rest of m50, m75 and m101 s8.
 K2_M101_SHAPES = ((257, 257, 32, 64, 1), (129, 129, 128, 128, 1), (65, 65, 256, 256, 1),
                   (33, 33, 512, 512, 5), (33, 33, 512, 1024, 1))
-K2_STEM_SHAPES = ((257, 257, 16, 32, 0), (257, 257, 24, 48, 0))
+K2_OTHER_SHAPES = ((257, 257, 16, 32, 0), (257, 257, 24, 48, 0), (17, 17, 1024, 1024, 0),
+                   (129, 129, 64, 64, 0), (129, 129, 96, 96, 0), (65, 65, 128, 256, 0),
+                   (65, 65, 192, 192, 0), (65, 65, 192, 384, 0), (65, 65, 256, 512, 0),
+                   (33, 33, 256, 256, 0), (33, 33, 384, 384, 0))
+HBM_BYTES_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def check(ok: bool, what: str):
@@ -219,6 +242,61 @@ def k2_against_plain(args):
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
     ok = bool((diff <= ulp.clamp_min(2.0 ** -16)).all())
     return ok, float(diff.max()), float((diff == 0).float().mean())
+
+
+def k2_bound_ms(b, h, w, c_in, c_out):
+    """(bound ms, what bounds it) of one K2 call: each input read once and
+    the output written once, in bytes; the pointwise's products on the
+    bf16 tensor cores and the depthwise's 9 taps in f32, each at its peak."""
+    m = b * h * w
+    nbytes = 2 * m * (c_in + c_out) + 2 * 9 * c_in + 4 * c_in + 2 * c_in * c_out + 4 * c_out
+    mem_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = max(2 * m * c_in * c_out / BF16_TENSOR_FLOPS, 2 * 9 * m * c_in / F32_FLOPS) * 1e3
+    return (mem_ms, 'bytes') if mem_ms >= ops_ms else (ops_ms, 'operations')
+
+
+def k1_fetches(args, h, w, stride):
+    """The hops that fetch in this walk: a hop reads its rows only where it
+    fills an empty keypoint from a filled one (traversal.cu), and one that
+    lands on a zero score leaves its keypoint empty. Replays the walk's
+    steps as the plain version rounds them, hop by hop, and fails unless
+    its scores equal the plain version's."""
+    sov, dft, dbt, cs, ck, rc = args
+    st = torch.tensor(float(stride), device=cs.device)
+    score, cy, cx = ([torch.where(ck == j, v, torch.zeros_like(cs)) for j in range(17)]
+                     for v in (cs, rc[..., 0], rc[..., 1]))
+
+    def cell(coord, n):
+        return torch.clamp(torch.round(coord / st), 0.0, n - 1.0)
+
+    def rows(table, iy, ix):
+        idx = (iy * w + ix).long()
+        return torch.gather(table, 1, idx[..., None].expand(-1, -1, table.shape[-1]))
+
+    fetches = 0
+    for levels, table in ((_BWD_LEVELS, dbt), (_FWD_LEVELS, dft)):
+        for e, s, t in (hop for level in levels for hop in level):
+            drow = rows(table, cell(cy[s], h), cell(cx[s], w))
+            ty, tx = cell(cy[s] + drow[..., e], h), cell(cx[s] + drow[..., 16 + e], w)
+            trow = rows(sov, ty, tx)
+            fill = (score[s] > 0.0) & (score[t] == 0.0)
+            fetches += int(fill.sum())
+            score[t] = torch.where(fill, trow[..., t], score[t])
+            cy[t] = torch.where(fill, ty * st + trow[..., 17 + t], cy[t])
+            cx[t] = torch.where(fill, tx * st + trow[..., 34 + t], cx[t])
+    ref = traversal.traverse_all_candidates_reference(cs, ck, rc, sov, dft, dbt, h, w, stride)
+    check(torch.equal(torch.stack(score, -1), ref[0]),
+          'the replayed K1 walk differs from the plain version')
+    return fetches
+
+
+def k1_bound_ms(b, k, fetches):
+    """K1's bound: the bytes this run's walk needs. Each of the B x K
+    candidates reads its score, keypoint and root (16 bytes) and writes 17
+    scores, coordinate pairs and offset pairs (340); each of the `fetches`
+    hops (`k1_fetches`) reads one displacement pair (8) and the landing
+    cell's score and offset pair (12)."""
+    return (b * k * (16 + 340) + fetches * (8 + 12)) / HBM_BYTES_S * 1e3
 
 
 def cuda_ms(fn, iters):
@@ -495,12 +573,13 @@ def serving_breakdown(model, dcfg, batch=32, reps=5):
           f'a chunk (torch.profiler, union of kernels and copies)', flush=True)
 
 
-def main() -> int:
-    # 1. device
+def device_phase():
+    """Phase 1: the card's name and power limit, versions; TF32 off.
+    Returns (kind, device), or None without CUDA."""
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on an NVIDIA GPU',
               file=sys.stderr)
-        return 1
+        return None
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
@@ -512,8 +591,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
+    return kind, dev
 
-    # 2. build
+
+def build_phase():
+    """Phase 2: K1 and K2, one nvcc each, in parallel, then loaded."""
     t0 = time.perf_counter()
     libs = _build.build_all(['traversal', 'sepconv'])
     for name in libs:
@@ -523,7 +605,10 @@ def main() -> int:
           f'{time.perf_counter() - t0:.2f} s (nvcc {" ".join(_build.NVCC_FLAGS)})',
           flush=True)
 
-    # 3. K1 against its plain version on the card
+
+def k1_checks(dev) -> float:
+    """Phase 3, K1: against its plain version, bitwise; returns the max
+    abs difference."""
     rng = np.random.RandomState(0)
     max_err = 0.0
     for b, h, w, stride, k in ((8, 33, 33, 16, 128), (4, 91, 161, 8, 32)):
@@ -536,14 +621,127 @@ def main() -> int:
         check(filled > b * k, f'K1 walk filled only {filled} keypoints at {h}x{w}')
         print(f'K1 vs plain: B={b} {h}x{w} s{stride} K={k}: bitwise equal '
               f'(tolerance 0), {filled} keypoints filled', flush=True)
+    return max_err
+
+
+def k2_checks(dev) -> float:
+    """Phase 3, K2: against its plain version at every K2 shape, the
+    ragged one-block tile, and the pointwise alone against torch.matmul;
+    returns the max abs difference."""
     k2_err = 0.0
-    for i, (h, w, c_in, c_out, _) in enumerate(K2_M101_SHAPES + K2_STEM_SHAPES):
-        ok, err, equal = k2_against_plain(k2_inputs(2, h, w, c_in, c_out, i, dev))
+    shapes = [(2, h, w, c_in, c_out) for h, w, c_in, c_out, _ in K2_M101_SHAPES + K2_OTHER_SHAPES]
+    for i, (b, h, w, c_in, c_out) in enumerate(shapes + [(1, 9, 9, 512, 512)]):
+        ok, err, equal = k2_against_plain(k2_inputs(b, h, w, c_in, c_out, i, dev))
         k2_err = max(k2_err, err)
-        check(ok, f'K2 differs from its plain version at B=2 {h}x{w} {c_in}->{c_out} '
+        check(ok, f'K2 differs from its plain version at B={b} {h}x{w} {c_in}->{c_out} '
                   f'beyond one bf16 ulp (max {err})')
-        print(f'K2 vs plain: B=2 {h}x{w} {c_in}->{c_out}: within one bf16 ulp '
+        print(f'K2 vs plain: B={b} {h}x{w} {c_in}->{c_out}: within one bf16 ulp '
               f'(or 2^-16), max abs {err:.3g}, share bitwise equal {equal:.6f}', flush=True)
+    # The pointwise alone: with the centre tap 1, the others and the bias 0,
+    # the depthwise of x in [0, 6) is x, so K2 is relu6(x @ pw^T + pw_b).
+    x, _, _, pw_w, pw_b = k2_inputs(1, 8, 8, 64, 128, 99, dev)
+    taps = torch.zeros((9, 64), dtype=torch.bfloat16, device=dev)
+    taps[4] = 1
+    got = sepconv.sepconv(x, taps, torch.zeros(64, device=dev), pw_w, pw_b).float()
+    ref = torch.matmul(x.float().reshape(64, 64), pw_w.float().t()) + pw_b
+    ref = ref.clamp(0, 6).to(torch.bfloat16).float().reshape(got.shape)
+    diff = (got - ref).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    check(bool((diff <= ulp.clamp_min(2.0 ** -16)).all()),
+          f'K2 pointwise (64x128x64) differs from torch.matmul (max {float(diff.max())})')
+    print(f'K2 pointwise alone, 64x128x64 (identity depthwise) vs torch.matmul: within one '
+          f'bf16 ulp, max abs {float(diff.max()):.3g}', flush=True)
+    return max(k2_err, float(diff.max()))
+
+
+def k2_trunk_launches(dev) -> int:
+    """bf16 m101 s16 heads at 2x65x65, the trunk through K2 on the card
+    against its plain version on the CPU; returns K2's launches (9)."""
+    cfg_bf16 = ModelConfig(model_id=101, output_stride=16, compute_dtype=torch.bfloat16)
+    p101 = mobilenet_v1.init_params(torch.Generator().manual_seed(5), cfg_bf16)
+    x65 = torch.from_numpy(np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3))
+                           .astype(np.float32))
+    ref_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16), x65,
+                                    cfg_bf16)
+    sepconv.launches = 0
+    got_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16, dev),
+                                    x65.to(dev), cfg_bf16)
+    torch.cuda.synchronize()
+    gap = max(float((got_bf16[k].cpu() - ref_bf16[k]).abs().max()) for k in ref_bf16)
+    check(sepconv.launches == 9, f'bf16 m101 s16 forward launched K2 {sepconv.launches} times')
+    check(gap <= 2e-3, f'bf16 heads, K2 on CUDA vs plain on CPU: {gap} (limit 2e-3)')
+    print(f'bf16 heads m101 s16 2x65x65, trunk through K2 (CUDA) vs its plain version '
+          f'(CPU): within {gap:.3g} (limit 2e-3); K2 launches 9', flush=True)
+    return sepconv.launches
+
+
+def k2_timing(dev, batch=128):
+    """Phase 7, K2: each m101 s16 layer at batch 128, K2 against its plain
+    version and the cuDNN conv pair the trunk ran before, in turns, beside
+    its bound, after holding K2 against its plain version on the same
+    inputs. Returns the sums over one forward's 9 layers, what bounds the
+    most of the bound's sum, and the max abs difference."""
+    k2_ms = k2_plain_ms = pair_ms = err_max = 0.0
+    bound_by_ms = {'bytes': 0.0, 'operations': 0.0}
+    for i, (h, w, c_in, c_out, count) in enumerate(K2_M101_SHAPES):
+        args = k2_inputs(batch, h, w, c_in, c_out, 100 + i, dev)
+        x, taps, dw_b, pw_w, pw_b = args
+        x_nchw = x.permute(0, 3, 1, 2)
+        dw_oihw = taps.t().reshape(c_in, 1, 3, 3).contiguous()
+        pw_oihw = pw_w.reshape(c_out, c_in, 1, 1)
+        ok, err, equal = k2_against_plain(args)
+        err_max = max(err_max, err)
+        check(ok, f'K2 differs from its plain version at B={batch} {h}x{w} {c_in}->{c_out} '
+                  f'beyond one bf16 ulp (max {err})')
+        print(f'K2 vs plain: B={batch} {h}x{w} {c_in}->{c_out}: within one bf16 ulp '
+              f'(or 2^-16), max abs {err:.3g}, share bitwise equal {equal:.6f}', flush=True)
+
+        def pair():
+            y = mobilenet_v1._conv_relu6(x_nchw, dw_oihw, dw_b, groups=c_in)
+            return mobilenet_v1._conv_relu6(y, pw_oihw, pw_b)
+
+        runs = {}
+        for name, fn, iters in (('plain', sepconv.sepconv_reference, 3),
+                                ('kernel', sepconv.sepconv, 20),
+                                ('cudnn', None, 20), ('cudnn', None, 20),
+                                ('kernel', sepconv.sepconv, 20),
+                                ('plain', sepconv.sepconv_reference, 3)):
+            call = pair if fn is None else (lambda fn=fn: fn(*args))
+            runs.setdefault(name, []).append(cuda_ms(call, iters))
+        ms = {k: sum(v) / len(v) for k, v in runs.items()}
+        bound, bound_by = k2_bound_ms(batch, h, w, c_in, c_out)
+        k2_ms += count * ms['kernel']
+        k2_plain_ms += count * ms['plain']
+        pair_ms += count * ms['cudnn']
+        bound_by_ms[bound_by] += count * bound
+        print(f'K2 layer b{batch} {h}x{w} {c_in}->{c_out} (x{count} a forward): kernel '
+              f'{ms["kernel"]:.4f} ms, cuDNN pair {ms["cudnn"]:.4f} ms, bound {bound:.4f} ms '
+              f'({bound_by}), kernel / bound {ms["kernel"] / bound:.1f}x, plain '
+              f'{ms["plain"]:.4f} ms (runs plain, kernel, cudnn, cudnn, kernel, plain: '
+              f'{runs})', flush=True)
+        del args, x, x_nchw
+    bound_sum = sum(bound_by_ms.values())
+    print(f'K2 over the 9 layers of one m101 s16 b{batch} forward: kernel {k2_ms:.4f} ms, '
+          f'cuDNN pair {pair_ms:.4f} ms, bound {bound_sum:.4f} ms, kernel / bound '
+          f'{k2_ms / bound_sum:.1f}x, plain {k2_plain_ms:.4f} ms', flush=True)
+    return (k2_ms, k2_plain_ms, pair_ms, bound_sum, max(bound_by_ms, key=bound_by_ms.get),
+            err_max)
+
+
+def k2_entry(launches, err, timing) -> dict:
+    """K2's entry of the kernels line; `library_ms` is the cuDNN pair's."""
+    k2_ms, plain_ms, pair_ms, bound, bound_by, timing_err = timing
+    return {'name': 'sepconv', 'route': 'cuda', 'source': K2_SOURCE,
+            'replaces': K2_REPLACES, 'launches': launches,
+            'max_abs_err': max(err, timing_err),
+            'ms': k2_ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+            'bound_by': bound_by, 'library_ms': pair_ms}
+
+
+def full_run(dev) -> list:
+    """Phases 3-7; returns the kernels' entries."""
+    max_err = k1_checks(dev)
+    k2_err = k2_checks(dev)
 
     # 4. float32 parity on the card (fixture weights, synthesized photos)
     params = weights.load_params_npz(FIXTURE)
@@ -596,21 +794,7 @@ def main() -> int:
           f'coords {raw_coord:.2g} px, pose scores {raw_score:.2g}; poses per image '
           f'{n_raw.tolist()}', flush=True)
 
-    cfg_bf16 = ModelConfig(model_id=101, output_stride=16, compute_dtype=torch.bfloat16)
-    p101 = mobilenet_v1.init_params(torch.Generator().manual_seed(5), cfg_bf16)
-    x65 = torch.from_numpy(np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3))
-                           .astype(np.float32))
-    ref_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16), x65,
-                                    cfg_bf16)
-    sepconv.launches = 0
-    got_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16, dev),
-                                    x65.to(dev), cfg_bf16)
-    torch.cuda.synchronize()
-    gap = max(float((got_bf16[k].cpu() - ref_bf16[k]).abs().max()) for k in ref_bf16)
-    check(sepconv.launches == 9, f'bf16 m101 s16 forward launched K2 {sepconv.launches} times')
-    check(gap <= 2e-3, f'bf16 heads, K2 on CUDA vs plain on CPU: {gap} (limit 2e-3)')
-    print(f'bf16 heads m101 s16 2x65x65, trunk through K2 (CUDA) vs its plain version '
-          f'(CPU): within {gap:.3g} (limit 2e-3); K2 launches 9', flush=True)
+    k2_trunk_launches(dev)
 
     # 5. the main path: m101 s16 bf16, random init, 513x513
     model = load_model(101, 16, allow_random_init=True, device=dev,
@@ -724,43 +908,14 @@ def main() -> int:
           f'{pre_ms:.3f} ms per batch', flush=True)
     del bgr
 
-    k2_ms = k2_plain_ms = pair_ms = 0.0
-    for i, (h, w, c_in, c_out, count) in enumerate(K2_M101_SHAPES):
-        args = k2_inputs(batch, h, w, c_in, c_out, 100 + i, dev)
-        x, taps, dw_b, pw_w, pw_b = args
-        x_nchw = x.permute(0, 3, 1, 2)
-        dw_oihw = taps.t().reshape(c_in, 1, 3, 3).contiguous()
-        pw_oihw = pw_w.reshape(c_out, c_in, 1, 1)
-
-        def pair():
-            y = mobilenet_v1._conv_relu6(x_nchw, dw_oihw, dw_b, groups=c_in)
-            return mobilenet_v1._conv_relu6(y, pw_oihw, pw_b)
-
-        runs = {}
-        for name, fn, iters in (('plain', sepconv.sepconv_reference, 3),
-                                ('kernel', sepconv.sepconv, 20),
-                                ('cudnn', None, 20), ('cudnn', None, 20),
-                                ('kernel', sepconv.sepconv, 20),
-                                ('plain', sepconv.sepconv_reference, 3)):
-            call = pair if fn is None else (lambda fn=fn: fn(*args))
-            runs.setdefault(name, []).append(cuda_ms(call, iters))
-        ms = {k: sum(v) / len(v) for k, v in runs.items()}
-        k2_ms += count * ms['kernel']
-        k2_plain_ms += count * ms['plain']
-        pair_ms += count * ms['cudnn']
-        print(f'K2 layer b{batch} {h}x{w} {c_in}->{c_out} (x{count} a forward): kernel '
-              f'{ms["kernel"]:.4f} ms, plain {ms["plain"]:.4f} ms, cuDNN pair '
-              f'{ms["cudnn"]:.4f} ms (runs plain, kernel, cudnn, cudnn, kernel, plain: '
-              f'{runs})', flush=True)
-        del args, x, x_nchw
-    print(f'K2 over the 9 layers of one m101 s16 b{batch} forward: kernel {k2_ms:.4f} ms, '
-          f'plain {k2_plain_ms:.4f} ms, cuDNN pair {pair_ms:.4f} ms', flush=True)
+    k2_time = k2_timing(dev, batch)
 
     args = _prepare_decode(*peaked, 16, pipe.decode_cfg)[:6]
     equal, err, _ = k1_against_plain(args, 33, 33, 16)
     max_err = max(max_err, err)
     check(equal, f'K1 differs from its plain version at B={batch} (max {err})')
     sov, dft, dbt, cs, ck, rc = args
+    fetches = k1_fetches(args, 33, 33, 16)
     k1_args = (cs, ck, rc, sov, dft, dbt, 33, 33, 16)
     times = {}
     for name, fn in (('plain', traversal.traverse_all_candidates_reference),
@@ -770,16 +925,39 @@ def main() -> int:
         times.setdefault(name, []).append(cuda_ms(lambda: fn(*k1_args), 50))
     k1_ms = sum(times['kernel']) / 2
     plain_ms = sum(times['plain']) / 2
-    print(f'K1 at B={batch} K=128 33x33: kernel {k1_ms:.4f} ms, plain {plain_ms:.4f} ms '
+    k1_bound = k1_bound_ms(batch, 128, fetches)
+    print(f'K1 at B={batch} K=128 33x33: kernel {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+          f'bound {k1_bound:.4f} ms (bytes; {fetches} fetching hops of '
+          f'{batch * 128 * 32}), kernel / bound {k1_ms / k1_bound:.1f}x '
           f'(runs plain, kernel, kernel, plain: {times})', flush=True)
 
-    print(json.dumps({'kernels': [
+    return [
         {'name': 'traverse_all_candidates', 'route': 'cuda', 'source': K1_SOURCE,
          'replaces': K1_REPLACES, 'launches': launches, 'max_abs_err': max_err,
-         'ms': k1_ms, 'plain_ms': plain_ms},
-        {'name': 'sepconv', 'route': 'cuda', 'source': K2_SOURCE,
-         'replaces': K2_REPLACES, 'launches': k2_launches, 'max_abs_err': k2_err,
-         'ms': k2_ms, 'plain_ms': k2_plain_ms}]}))
+         'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': k1_bound, 'bound_by': 'bytes',
+         'library_ms': None},
+        k2_entry(k2_launches, k2_err, k2_time)]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--only', choices=('k2',),
+                        help='k2: the device and build phases, then K2 alone')
+    only = parser.parse_args(argv).only
+    found = device_phase()
+    if found is None:
+        return 1
+    kind, dev = found
+    build_phase()
+    if only == 'k2':
+        k2_err = k2_checks(dev)
+        k2_launches = k2_trunk_launches(dev)
+        # No main path runs here: `launches` is the trunk check's (2x65x65).
+        kernels = [dict(k2_entry(k2_launches, k2_err, k2_timing(dev)),
+                        launches_from='bf16 trunk check at 2x65x65, not the main path')]
+    else:
+        kernels = full_run(dev)
+    print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0

@@ -16,6 +16,7 @@ import torch
 
 from posenet_tpu_torch.config import DecodeConfig
 from posenet_tpu_torch.decode import DecodedPoses, decode_batch
+from posenet_tpu_torch.models.model_factory import resolve_device
 
 
 def _to_hwc(t, device) -> torch.Tensor:
@@ -34,9 +35,11 @@ def decode_multiple_poses(
         scores, offsets, displacements_fwd, displacements_bwd, output_stride,
         max_pose_detections: int = 10, score_threshold: float = 0.5,
         nms_radius: int = 20, min_pose_score: float = 0.5,
-        max_candidates: int = 128, *, device: torch.device | str = 'cpu',
+        max_candidates: int = 128, *, device: torch.device | str = 'cuda',
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """Inputs are CHW: (17,H,W), (34,H,W), (32,H,W), (32,H,W)."""
+    """Inputs are CHW: (17,H,W), (34,H,W), (32,H,W), (32,H,W). Raises on a
+    host without a CUDA device unless `device` is the CPU."""
+    device = resolve_device(device)
     cfg = DecodeConfig(
         max_pose_detections=max_pose_detections,
         score_threshold=score_threshold,

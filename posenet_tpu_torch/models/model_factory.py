@@ -5,6 +5,9 @@ call takes an NCHW or NHWC float tensor and returns the four head tensors
 in the same layout. It reads `<model_dir>/<checkpoint>.npz` (the JAX
 package's checkpoint format) when the file exists; otherwise it draws
 random weights when `allow_random_init=True`, and raises when not.
+
+Models are built on the card unless the caller names another device
+(`device='cpu'`); on a host without a CUDA device the default raises.
 """
 
 from __future__ import annotations
@@ -18,6 +21,18 @@ from torch import nn
 from posenet_tpu_torch.config import MODEL_DIR, ModelConfig
 from posenet_tpu_torch.converter import weights
 from posenet_tpu_torch.models import mobilenet_v1
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """`device` as a torch.device; raises where it is a CUDA device and this
+    host has none, so that nothing is built on the CPU unless asked for."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{str(device)!r} needs a CUDA device, and none is available here: run "
+            f"on a CUDA host, or ask for the CPU (device='cpu', platforms=('cpu',), "
+            f"--platforms cpu)")
+    return device
 
 
 class _Tensors(nn.Module):
@@ -86,10 +101,11 @@ class PoseNet(nn.Module):
 
 def MobileNetV1(model_id: int = 101, output_stride: int = 16, *,
                 compute_dtype: torch.dtype = torch.float32, seed: int = 0,
-                device: torch.device | str = 'cpu') -> PoseNet:
-    """A randomly initialised model; weights drawn from a CPU
-    `torch.Generator` seeded with `seed`, so they do not depend on
-    `device`. Use `load_model` for checkpoint weights."""
+                device: torch.device | str = 'cuda') -> PoseNet:
+    """A randomly initialised model on `device` (see `resolve_device`);
+    weights drawn from a CPU `torch.Generator` seeded with `seed`, so they
+    do not depend on `device`. Use `load_model` for checkpoint weights."""
+    device = resolve_device(device)
     cfg = ModelConfig(model_id=model_id, output_stride=output_stride,
                       compute_dtype=compute_dtype)
     generator = torch.Generator().manual_seed(seed)
@@ -100,9 +116,11 @@ def load_model(model_id: int = 101, output_stride: int = 16,
                model_dir: str = MODEL_DIR, *,
                compute_dtype: torch.dtype = torch.float32,
                allow_random_init: bool = False, seed: int = 0,
-               device: torch.device | str = 'cpu') -> PoseNet:
-    """Load `<model_dir>/<checkpoint>.npz` onto `device`, or, when it is
-    missing and `allow_random_init` is set, build random weights."""
+               device: torch.device | str = 'cuda') -> PoseNet:
+    """Load `<model_dir>/<checkpoint>.npz` onto `device` (see
+    `resolve_device`), or, when it is missing and `allow_random_init` is
+    set, build random weights."""
+    device = resolve_device(device)
     cfg = ModelConfig(model_id=model_id, output_stride=output_stride,
                       compute_dtype=compute_dtype)
     name = mobilenet_v1.MOBILENET_V1_CHECKPOINTS[model_id]

@@ -517,7 +517,7 @@ def make_http_server(pose_server: PoseServer, host: str = "127.0.0.1",
 def main(argv: Optional[Sequence[str]] = None):
     import argparse
 
-    from posenet_tpu_torch.serving import current_platform, load_serving_artifact
+    from posenet_tpu_torch.serving import load_serving_artifact
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--artifact",
@@ -559,8 +559,7 @@ def main(argv: Optional[Sequence[str]] = None):
         from posenet_tpu_torch.models import load_model
 
         model = load_model(args.model, output_stride=args.output_stride,
-                           allow_random_init=args.allow_random_init,
-                           device=current_platform())
+                           allow_random_init=args.allow_random_init)   # on the card
         artifact = LivePipelineBackend(
             model,
             decode_cfg=DecodeConfig(min_pose_score=args.min_pose_score),

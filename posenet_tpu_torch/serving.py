@@ -46,7 +46,7 @@ from torch import nn
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.decode import DecodedPoses
 from posenet_tpu_torch.models import mobilenet_v1
-from posenet_tpu_torch.models.model_factory import PoseNet
+from posenet_tpu_torch.models.model_factory import PoseNet, resolve_device
 from posenet_tpu_torch.pipeline import infer, to_device
 
 # `format` tells this package's artifacts from the JAX package's, whose
@@ -65,20 +65,12 @@ def _validate_input_hw(input_hw: Tuple[int, int], output_stride: int):
             f"(preprocess.valid_resolution computes the nearest)")
 
 
-def current_platform() -> str:
-    """'cuda' where a CUDA device is available, else 'cpu'."""
-    return 'cuda' if torch.cuda.is_available() else 'cpu'
-
-
 def _platform_device(platform: str) -> torch.device:
+    """The device a platform runs on; 'cuda' raises on a host without one."""
     if platform not in PLATFORMS:
         raise ValueError(f"unknown platform {platform!r}; the port exports for {PLATFORMS}")
-    if platform == 'cpu':
+    if resolve_device(platform).type == 'cpu':
         return torch.device('cpu')
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "the 'cuda' platform needs a CUDA device, and none is available "
-            "here: run on a CUDA host, or use the 'cpu' platform")
     return torch.device('cuda', torch.cuda.current_device())
 
 
@@ -101,12 +93,12 @@ def save_serving_artifact(
         decode_cfg: DecodeConfig = DecodeConfig(min_pose_score=0.25),
         batch_sizes: Sequence[int] = (1,),
         input_hw: Tuple[int, int] = (513, 513),
-        platforms: Optional[Sequence[str]] = None,
+        platforms: Sequence[str] = ('cuda',),
         data_parallel_devices: Optional[int] = None) -> Dict:
     """Export `model`'s fused inference pipeline to a serving artifact.
 
-    `platforms`: any of 'cuda' and 'cpu' (None: the current platform). A
-    platform is exported on its own device, so 'cuda' needs one. Returns
+    `platforms`: any of 'cuda' and 'cpu'. A platform is exported on its own
+    device, so 'cuda' (the default) needs one, and raises without. Returns
     the metadata dict written to the artifact. The artifact is written to
     a temporary file and renamed, so a failed export leaves nothing at
     `path`."""
@@ -118,7 +110,9 @@ def save_serving_artifact(
             'Queue 1 item 14, multi-device)')
     cfg = model.cfg
     _validate_input_hw(tuple(input_hw), cfg.output_stride)
-    platforms = list(platforms) if platforms else [current_platform()]
+    platforms = list(platforms)
+    if not platforms:
+        raise ValueError('platforms names no platform to export for')
     devices = {p: _platform_device(p) for p in platforms}
     batches = sorted(set(int(b) for b in batch_sizes))
     if not batches or batches[0] < 1:
@@ -170,11 +164,11 @@ class ServingArtifact:
     frames (numpy or a tensor; a tensor already on the device is used as it
     is) and get `DecodedPoses` on the artifact's device.
 
-    `device`: where the programs run (None: the current platform's device,
-    the card where there is one). Programs load once per batch size, at
-    first use, and are cached."""
+    `device`: where the programs run: the card unless the caller names the
+    CPU; 'cuda' raises on a host without a CUDA device. Programs load once
+    per batch size, at first use, and are cached."""
 
-    def __init__(self, path: str, device: torch.device | str | None = None):
+    def __init__(self, path: str, device: torch.device | str = 'cuda'):
         self.path = path
         with zipfile.ZipFile(path) as zf:
             self.meta = json.loads(zf.read('meta.json'))
@@ -191,8 +185,7 @@ class ServingArtifact:
                 f"this loader reads {FORMAT_VERSION}")
         self.batch_sizes = list(self.meta['batch_sizes'])
         self.input_hw = tuple(self.meta['input_hw'])
-        self.device = _platform_device(
-            torch.device(device).type if device is not None else current_platform())
+        self.device = _platform_device(torch.device(device).type)
         self._programs: Dict[int, nn.Module] = {}
 
     def _program(self, batch: int) -> nn.Module:
@@ -232,8 +225,7 @@ class ServingArtifact:
         return DecodedPoses.from_tuple(program(to_device(frames, self.device)))
 
 
-def load_serving_artifact(path: str,
-                          device: torch.device | str | None = None) -> ServingArtifact:
+def load_serving_artifact(path: str, device: torch.device | str = 'cuda') -> ServingArtifact:
     return ServingArtifact(path, device)
 
 
@@ -251,9 +243,9 @@ def main(argv: Optional[Sequence[str]] = None):
                    help='input resolution; snapped stride-valid')
     p.add_argument('--batch_sizes', type=str, default='1',
                    help='comma-separated, e.g. 1,8,128')
-    p.add_argument('--platforms', type=str, default='',
-                   help="comma-separated of 'cuda' and 'cpu' (default: 'cuda' "
-                        "where a CUDA device is available, else 'cpu')")
+    p.add_argument('--platforms', type=str, default='cuda',
+                   help="comma-separated of 'cuda' and 'cpu'; the model is "
+                        "loaded on the first one's device")
     p.add_argument('--compute_dtype', default='bfloat16', choices=('bfloat16', 'float32'),
                    help='bf16 is the inference mode (K2 runs only in bf16)')
     p.add_argument('--min_pose_score', type=float, default=0.25)
@@ -272,9 +264,13 @@ def main(argv: Optional[Sequence[str]] = None):
         raise NotImplementedError(
             '--from_checkpoint (a training checkpoint) is not ported yet (ROADMAP '
             'Queue 1 item 13, training)')
+    platforms = [s for s in args.platforms.split(',') if s]
+    if not platforms:
+        p.error('--platforms names no platform')
     model = load_model(args.model, args.output_stride,
                        compute_dtype=getattr(torch, args.compute_dtype),
-                       allow_random_init=args.random_init_ok)
+                       allow_random_init=args.random_init_ok,
+                       device=_platform_device(platforms[0]))
     # valid_resolution takes (width, height) and returns (w, h)
     vw, vh = valid_resolution(args.size[1], args.size[0], args.output_stride)
     meta = save_serving_artifact(
@@ -282,7 +278,7 @@ def main(argv: Optional[Sequence[str]] = None):
         decode_cfg=DecodeConfig(min_pose_score=args.min_pose_score),
         batch_sizes=[int(b) for b in args.batch_sizes.split(',')],
         input_hw=(vh, vw),
-        platforms=[s for s in args.platforms.split(',') if s] or None,
+        platforms=platforms,
         data_parallel_devices=args.data_parallel_devices)
     print(f"wrote {args.output}: model {meta['model_id']} s{meta['output_stride']} "
           f"{meta['input_hw']} batches {meta['batch_sizes']} platforms {meta['platforms']}")

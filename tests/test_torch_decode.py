@@ -266,7 +266,7 @@ def test_decode_multiple_poses_is_decode_batch_of_one():
     heads = synth_heads(21)
     kw = dict(max_pose_detections=10, score_threshold=0.5, nms_radius=20,
               min_pose_score=0.25)
-    ours = decode_multiple_poses(*heads, 16, **kw)
+    ours = decode_multiple_poses(*heads, 16, device='cpu', **kw)
     batch = decode.decode_batch(
         *[torch.from_numpy(h.transpose(1, 2, 0))[None] for h in heads], 16,
         DecodeConfig(**kw))
@@ -275,7 +275,7 @@ def test_decode_multiple_poses_is_decode_batch_of_one():
         np.testing.assert_array_equal(a, b[0].numpy().astype(a.dtype))
     assert (ours[0] > 0).sum() >= 1
     with pytest.raises(ValueError, match="ONE image"):
-        decode_multiple_poses(*[np.stack([h, h]) for h in heads], 16)
+        decode_multiple_poses(*[np.stack([h, h]) for h in heads], 16, device='cpu')
 
 
 def test_candidate_count_surfaces_topk_overflow():

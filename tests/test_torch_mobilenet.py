@@ -119,7 +119,7 @@ def test_bf16_heads_close_to_f32_and_jax_bf16():
 
 
 def test_posenet_call_accepts_nchw_and_nhwc():
-    model = MobileNetV1(50, 16, seed=3)
+    model = MobileNetV1(50, 16, seed=3, device='cpu')
     assert isinstance(model, torch.nn.Module)
     x = torch.from_numpy(
         np.random.RandomState(4).uniform(-1, 1, (1, 33, 49, 3)).astype(np.float32))

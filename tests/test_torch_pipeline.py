@@ -28,10 +28,10 @@ from posenet_tpu.config import ModelConfig as JaxModelConfig
 from posenet_tpu.converter import tfjs2jax
 from posenet_tpu.pipeline import infer_jit
 
-from posenet_tpu_torch import PoseNetPipeline, load_model
+from posenet_tpu_torch import PoseNetPipeline, decode_multiple_poses, load_model
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.converter import weights
-from posenet_tpu_torch.models import mobilenet_v1
+from posenet_tpu_torch.models import MobileNetV1, mobilenet_v1
 from posenet_tpu_torch.pipeline import infer, normalize
 
 from tests.make_fixture_checkpoint import FIXTURE_PATH
@@ -100,18 +100,35 @@ def test_pipeline_random_m101_shapes(dtype):
         pipe(np.zeros((1, 65, 65, 3), np.float32))
 
 
+@pytest.mark.parametrize("build", ["load_model", "MobileNetV1", "decode_multiple_poses"])
+def test_model_defaults_to_the_card(build, monkeypatch, tmp_path):
+    """With no `device`, a model is built, and the reference-API decode
+    runs, on the card: on a host without a CUDA device that raises, instead
+    of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    heads = [np.zeros((c, 5, 5), np.float32) for c in (17, 34, 32, 32)]
+    make = {'load_model': lambda: load_model(50, 16, model_dir=str(tmp_path),
+                                             allow_random_init=True),
+            'MobileNetV1': lambda: MobileNetV1(50, 16),
+            'decode_multiple_poses': lambda: decode_multiple_poses(*heads, 16)}[build]
+    with pytest.raises(RuntimeError, match="needs a CUDA device.*device='cpu'"):
+        make()
+
+
 def test_load_model_reads_checkpoint_or_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="allow_random_init"):
-        load_model(50, 16, model_dir=str(tmp_path))
+        load_model(50, 16, model_dir=str(tmp_path), device='cpu')
     shutil.copy(FIXTURE_PATH, tmp_path / 'mobilenet_v1_050.npz')
-    model = load_model(50, 16, model_dir=str(tmp_path))
+    model = load_model(50, 16, model_dir=str(tmp_path), device='cpu')
     ref = weights.params_from_jax(tfjs2jax.load_params_npz(FIXTURE_PATH))
     for a, b in zip(model.params['backbone'], ref['backbone']):
         for k in b:
             assert torch.equal(a[k], b[k])
     # random init is deterministic in the seed
-    a = load_model(50, 16, model_dir=str(tmp_path / 'none'), allow_random_init=True)
-    b = load_model(50, 16, model_dir=str(tmp_path / 'none'), allow_random_init=True)
+    a = load_model(50, 16, model_dir=str(tmp_path / 'none'), allow_random_init=True,
+                   device='cpu')
+    b = load_model(50, 16, model_dir=str(tmp_path / 'none'), allow_random_init=True,
+                   device='cpu')
     assert torch.equal(a.params['heads']['heatmap']['w'],
                        b.params['heads']['heatmap']['w'])
     assert isinstance(a.cfg, ModelConfig)

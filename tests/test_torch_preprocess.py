@@ -98,7 +98,7 @@ def test_preprocess_rejects_non_uint8():
 def test_infer_raw_equals_hand_chain(dtype):
     """The raw-frame program, and the pipeline in raw mode, against
     preprocess -> forward -> decode chained by hand: bitwise."""
-    model = load_model(50, 16, allow_random_init=True, compute_dtype=dtype)
+    model = load_model(50, 16, allow_random_init=True, compute_dtype=dtype, device='cpu')
     dcfg = DecodeConfig(min_pose_score=0.0, score_threshold=0.3, max_candidates=32)
     pipe = PoseNetPipeline(model, dcfg, device_resize_to=(65, 65))
     pipe.warmup((80, 100), batch=1)    # the source shape in raw mode

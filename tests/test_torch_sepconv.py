@@ -200,12 +200,20 @@ def test_wrapper_counts_only_kernel_launches():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,c_in,c_out", [
-    (257, 257, 32, 64), (129, 129, 128, 128), (65, 65, 256, 256), (33, 33, 512, 512),
-    (33, 33, 512, 1024), (33, 33, 1024, 1024), (257, 257, 16, 32), (257, 257, 24, 48),
-    (17, 23, 96, 96), (5, 7, 8, 16)])
-def test_kernel_matches_plain_on_card(cuda, h, w, c_in, c_out):   # noqa: F811
-    args = _torch_args(*_inputs(4, 2, h, w, c_in, c_out), device=cuda)
+@pytest.mark.parametrize("b,h,w,c_in,c_out", [
+    # every K2 layer of the four models at 513x513: m101 s16, then the
+    # C_in 16 and 24 stems, m101 s32's last (BM = 64), the rest of m50,
+    # m75 and m101 s8
+    (2, 257, 257, 32, 64), (2, 129, 129, 128, 128), (2, 65, 65, 256, 256),
+    (2, 33, 33, 512, 512), (2, 33, 33, 512, 1024), (2, 257, 257, 16, 32),
+    (2, 257, 257, 24, 48), (2, 17, 17, 1024, 1024), (2, 129, 129, 64, 64),
+    (2, 129, 129, 96, 96), (2, 65, 65, 128, 256), (2, 65, 65, 192, 192),
+    (2, 65, 65, 192, 384), (2, 65, 65, 256, 512), (2, 33, 33, 256, 256),
+    (2, 33, 33, 384, 384),
+    # smaller than one block with a ragged pixel tile; odd widths
+    (1, 9, 9, 512, 512), (2, 33, 33, 1024, 1024), (2, 17, 23, 96, 96), (2, 5, 7, 8, 16)])
+def test_kernel_matches_plain_on_card(cuda, b, h, w, c_in, c_out):   # noqa: F811
+    args = _torch_args(*_inputs(4, b, h, w, c_in, c_out), device=cuda)
     before = sepconv.launches
     got = sepconv.sepconv(*args)
     torch.cuda.synchronize()

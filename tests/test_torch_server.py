@@ -30,7 +30,7 @@ DCFG = DecodeConfig(min_pose_score=0.0, score_threshold=0.25)
 
 @pytest.fixture(scope="module")
 def model():
-    return MobileNetV1(50, 16, seed=11)
+    return MobileNetV1(50, 16, seed=11, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +38,7 @@ def artifact(model, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("srv") / "m50.posenet")
     save_serving_artifact(model, path, decode_cfg=DCFG, batch_sizes=(1, 4),
                           input_hw=HW, platforms=("cpu",))
-    return load_serving_artifact(path)
+    return load_serving_artifact(path, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -365,6 +365,17 @@ def test_serve_cli_requires_exactly_one_source(argv):
 
     with pytest.raises(SystemExit):
         serve_main(argv)
+
+
+def test_serve_cli_live_mode_needs_the_card(monkeypatch, tmp_path):
+    """`posenet-serve-torch --model` loads its model on the card: on a host
+    without a CUDA device it raises before it serves anything."""
+    from posenet_tpu_torch.server import main as serve_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)   # keep ./_models lookups out of the repo
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        serve_main(["--model", "50", "--allow_random_init", "--port", "0"])
 
 
 def test_shutdown_answers_queued_requests(backend):

@@ -64,7 +64,7 @@ def artifact(fixture_params, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("art") / "m50.posenet")
     meta = save_serving_artifact(model, path, decode_cfg=DCFG, batch_sizes=(2, 1),
                                  input_hw=PHOTO_HW, platforms=("cpu",))
-    return model, load_serving_artifact(path), meta
+    return model, load_serving_artifact(path, device="cpu"), meta
 
 
 @pytest.fixture(scope="module")
@@ -157,11 +157,12 @@ def _rewrite_meta(src, dst, **changes):
 
 def test_platform_mismatch_is_actionable(artifact, tmp_path, monkeypatch):
     """A `cuda` artifact where CUDA is absent raises instead of running on
-    the CPU; the platform is checked before the batch size."""
+    the CPU, loaded by default or asked to run on the CPU; the platform is
+    checked before the batch size."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cuda_only = str(tmp_path / "cuda_only.posenet")
     _rewrite_meta(artifact[1].path, cuda_only, platforms=["cuda"])
-    art = load_serving_artifact(cuda_only)
+    art = load_serving_artifact(cuda_only, device="cpu")
     assert art.device == torch.device("cpu")
     for batch in (1, 3):
         with pytest.raises(ValueError, match="exported for platforms.*cuda.*'cpu'"):
@@ -222,14 +223,14 @@ def test_bf16_artifact_keeps_the_k2_route(tmp_path):
     """A bf16 CPU export holds K2's plain version (the wrapper's pointer
     check now sits in the CUDA op, out of the tracer's way) and stays
     bitwise equal to `infer`."""
-    model = MobileNetV1(50, 16, compute_dtype=torch.bfloat16, seed=4)
+    model = MobileNetV1(50, 16, compute_dtype=torch.bfloat16, seed=4, device="cpu")
     dcfg = DecodeConfig(min_pose_score=0.0, score_threshold=0.25)
     path = str(tmp_path / "bf16.posenet")
     meta = save_serving_artifact(model, path, decode_cfg=dcfg, batch_sizes=(1,),
                                  input_hw=(33, 33), platforms=("cpu",))
     assert meta["compute_dtype"] == "bfloat16"
     frames = np.random.RandomState(4).randint(0, 256, (1, 33, 33, 3), np.uint8)
-    out = load_serving_artifact(path)(frames)
+    out = load_serving_artifact(path, device="cpu")(frames)
     ref = infer(mobilenet_v1.cast_params(model.params, torch.bfloat16),
                 torch.from_numpy(frames), model.cfg, dcfg)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
@@ -244,8 +245,31 @@ def test_export_cli(tmp_path, monkeypatch):
                          "--compute_dtype", "float32", "--output", out,
                          "--random_init_ok"])
     assert meta["input_hw"] == [65, 65]   # 70 snaps to the stride-valid 65
-    scores = load_serving_artifact(out)(np.zeros((1, 65, 65, 3), np.uint8)).pose_scores
+    frames = np.zeros((1, 65, 65, 3), np.uint8)
+    scores = load_serving_artifact(out, device="cpu")(frames).pose_scores
     assert scores.shape == (1, 10) and torch.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("entry", ["save_serving_artifact", "ServingArtifact",
+                                   "load_serving_artifact", "posenet-export-torch"])
+def test_serving_entry_points_default_to_the_card(artifact, tmp_path, monkeypatch, entry):
+    """With no platform or device named, export and load target the card:
+    on a host without a CUDA device each raises, and nothing is written,
+    instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    out = str(tmp_path / "x.posenet")
+    call = {
+        "save_serving_artifact": lambda: save_serving_artifact(artifact[0], out,
+                                                               input_hw=(65, 65)),
+        "ServingArtifact": lambda: serving.ServingArtifact(artifact[1].path),
+        "load_serving_artifact": lambda: load_serving_artifact(artifact[1].path),
+        "posenet-export-torch": lambda: serving.main(
+            ["--model", "50", "--size", "65", "65", "--output", out, "--random_init_ok"]),
+    }[entry]
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        call()
+    assert not os.path.exists(out)
 
 
 @pytest.mark.parametrize("flags,item", [
