@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py             # every phase: what a run must pass
+    python3 chip_smoke.py --only k1   # device, build, K1's checks and timing
     python3 chip_smoke.py --only k2   # device, build, K2's checks and timing
 
 Phases, each printing its own line; any failure exits nonzero and prints
@@ -9,9 +10,14 @@ no result:
 1. device: needs CUDA; prints the card's `name, power.limit` (nvidia-smi)
    and the torch / CUDA versions. TF32 is turned off (f32 parity mode).
 2. build: compiles the traversal kernel K1 (csrc/traversal.cu) and the
-   fused sepconv kernel K2 (csrc/sepconv.cu), one nvcc each, in parallel.
+   fused sepconv kernel K2 (csrc/sepconv.cu), one nvcc each, in parallel;
+   prints what ptxas says of K1's walk (registers, stack frame, spills)
+   and fails unless its state stays in registers (0-byte stack frame, no
+   spills).
 3. K1 against its plain PyTorch version on the card, bit for bit, at the
-   main path's 33x33 stride-16 grid (B=8, K=128) and at 91x161 stride 8.
+   main path's 33x33 stride-16 grid (B=8, K=128), at 91x161 stride 8 on
+   views of one 115-channel heads tensor (as `run_heads` writes them), and
+   where the first backward hop to the nose lands on a zero score.
    K2 against its plain version at B=2 at every (H, W, C_in, C_out) that
    a K2 layer of the four models has at 513x513 (17x17 1024->1024, m101
    s32's last, is the BM = 64 path), and at B=1 9x9 512->512 (one block,
@@ -37,7 +43,8 @@ no result:
    out: (a) export a `cuda` artifact at batch sizes (1, 8) with
    `torch.export`, load it, and hold it bitwise to PoseNetPipeline on 8
    frames, with K2 launched 9 times and K1 at least once by the loaded
-   program, and every K2 input a view of the previous layer, no copy;
+   program, every K2 input a view of the previous layer, no copy, and
+   K1's row inputs views of the heads tensor (the scores of its sigmoid);
    (b) PoseServer over the artifact and over LivePipelineBackend on
    127.0.0.1, 16 raw frames posted concurrently, each reply equal to the
    in-process result for its frame at a served batch size, /healthz and
@@ -54,15 +61,24 @@ no result:
 7. timing (CUDA events / synchronize-bracketed host clock): fused m101 s16
    513x513 b128 bf16 forward + peaked decode in img/s, best of 3 windows;
    forward and decode alone; the raw-frame path from 720x1280 at b128 in
-   img/s; per K2 layer at b128, K2 held to its plain version (one bf16
-   ulp, or 2^-16) and then timed against it and against the cuDNN conv
-   pair the trunk ran before, beside its bound; K1 against its plain
-   version at B=128, K=128, beside its bound (the hops that fetch in this
-   run's walk).
+   img/s; `_prepare_decode` at b128 (CUDA graph and CUDA events) beside
+   the row copies it no longer makes; per K2 layer at b128, K2 held to its
+   plain version (one bf16 ulp, or 2^-16) and then timed against it and
+   against the cuDNN conv pair the trunk ran before, beside its bound; K1
+   at B=128, K=128, held to its plain version and timed against it, by
+   CUDA graph replay (the device alone) and per call by CUDA events (host
+   dispatch included), beside its bound (the hops that fetch in this run's
+   walk) and its latency floor (one candidate alone).
 Then one JSON line describing the kernels, and as the last line
-{"ok": true, "device": {...}}. `--only k2` runs phases 1, 2, K2's part of
-3, the bf16 trunk check of 4 and K2's per-layer timing of 7, then the
-same two lines (K2's entry; its `launches` from the trunk check, as
+{"ok": true, "device": {...}}. Its times are CUDA events per call (host
+dispatch included), with one exception: K1's `ms` is CUDA graph replay,
+the device alone, because its per-call time is the host's; K1's
+`call_ms` is the per-call time, the method of its `plain_ms` (the plain
+version cannot be captured in a graph: it copies its stride to the
+card) and of K1's `ms` before the graph timing. `--only k1` runs phases 1, 2, K1's part of
+3 and K1's timing of 7; `--only k2` runs phases 1, 2, K2's part of 3, the
+bf16 trunk check of 4 and K2's per-layer timing of 7; each then prints the
+same two lines (the kernel's entry; its `launches` from the checks, as
 `launches_from` says).
 
 Bounds (`bound_ms`) are the larger of bytes / 3.35 TB/s and operations /
@@ -76,6 +92,7 @@ import argparse
 import importlib.util
 import json
 import os
+import re
 import resource
 import subprocess
 import sys
@@ -101,6 +118,7 @@ from posenet_tpu_torch.preprocess import preprocess_on_device
 from posenet_tpu_torch.server import (LivePipelineBackend, PoseServer, _Request,
                                       make_http_server)
 from posenet_tpu_torch.serving import load_serving_artifact, save_serving_artifact
+from tests.torch_k1_cases import head_views, k1_reads_heads_in_place, nose_zero_heads
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'fixture_m50_s16.npz')
@@ -205,17 +223,23 @@ def assert_poses_equal(got: DecodedPoses, ref: DecodedPoses, what: str):
     check(int(ulps.max()) <= 2, f'{what}: pose scores {int(ulps.max())} ulp apart')
 
 
+def k1_args(heads, stride, cfg):
+    """K1's tensor arguments for NHWC heads, as `decode_batch` makes them:
+    the candidates, then the heads as row views."""
+    rows = _prepare_decode(*heads, stride, cfg)
+    return (*rows[4:7], *rows[:4])
+
+
 def k1_against_plain(args, h, w, stride):
-    """(bitwise equal, max abs difference, keypoints filled) of K1 against
-    the plain version on the same device tables."""
-    sov, dft, dbt, cs, ck, rc = args
-    got = traversal.traverse_all_candidates(cs, ck, rc, sov, dft, dbt, h, w, stride)
+    """(bitwise equal, max abs difference, keypoints filled, the plain
+    version's outputs) of K1 against the plain version on the same device
+    tensors."""
+    got = traversal.traverse_all_candidates(*args, h, w, stride)
     torch.cuda.synchronize()
-    ref = traversal.traverse_all_candidates_reference(cs, ck, rc, sov, dft, dbt,
-                                                      h, w, stride)
+    ref = traversal.traverse_all_candidates_reference(*args, h, w, stride)
     equal = all(torch.equal(a, b) for a, b in zip(got, ref))
     err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-    return equal, err, int((ref[0] > 0).sum())
+    return equal, err, int((ref[0] > 0).sum()), ref
 
 
 def k2_inputs(b, h, w, c_in, c_out, seed, device):
@@ -261,7 +285,7 @@ def k1_fetches(args, h, w, stride):
     lands on a zero score leaves its keypoint empty. Replays the walk's
     steps as the plain version rounds them, hop by hop, and fails unless
     its scores equal the plain version's."""
-    sov, dft, dbt, cs, ck, rc = args
+    cs, ck, rc, hm, off, dft, dbt = args
     st = torch.tensor(float(stride), device=cs.device)
     score, cy, cx = ([torch.where(ck == j, v, torch.zeros_like(cs)) for j in range(17)]
                      for v in (cs, rc[..., 0], rc[..., 1]))
@@ -278,13 +302,13 @@ def k1_fetches(args, h, w, stride):
         for e, s, t in (hop for level in levels for hop in level):
             drow = rows(table, cell(cy[s], h), cell(cx[s], w))
             ty, tx = cell(cy[s] + drow[..., e], h), cell(cx[s] + drow[..., 16 + e], w)
-            trow = rows(sov, ty, tx)
+            orow = rows(off, ty, tx)
             fill = (score[s] > 0.0) & (score[t] == 0.0)
             fetches += int(fill.sum())
-            score[t] = torch.where(fill, trow[..., t], score[t])
-            cy[t] = torch.where(fill, ty * st + trow[..., 17 + t], cy[t])
-            cx[t] = torch.where(fill, tx * st + trow[..., 34 + t], cx[t])
-    ref = traversal.traverse_all_candidates_reference(cs, ck, rc, sov, dft, dbt, h, w, stride)
+            score[t] = torch.where(fill, rows(hm, ty, tx)[..., t], score[t])
+            cy[t] = torch.where(fill, ty * st + orow[..., t], cy[t])
+            cx[t] = torch.where(fill, tx * st + orow[..., 17 + t], cx[t])
+    ref = traversal.traverse_all_candidates_reference(*args, h, w, stride)
     check(torch.equal(torch.stack(score, -1), ref[0]),
           'the replayed K1 walk differs from the plain version')
     return fetches
@@ -311,6 +335,31 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """Mean device time of one fn() call with the host out of the way:
+    `calls` calls captured in one CUDA graph, replayed `replays` times
+    between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def post_raw(base, frames):
@@ -422,6 +471,7 @@ def serving_phase(model, dev):
                        if n.target == torch.ops.posenet_tpu_torch.sepconv.default]
             check(made_by == [torch.ops.aten.permute.default] * 9,
                   f'b{b} program: the K2 inputs are made by {made_by}, not 9 views (permute)')
+        k1_inputs = [k1_reads_heads_in_place(art._program(b).graph) for b in (1, 8)]
         check(all(torch.equal(a, b) for a, b in zip(art(frames8[:1]), pipe(frames8[:1]))),
               'artifact b1 differs from PoseNetPipeline')
         n_poses = (out.pose_scores > 0).sum(1).tolist()
@@ -430,6 +480,7 @@ def serving_phase(model, dev):
               f'both programs {load_s:.2f} s; loaded program bitwise equal to '
               f'PoseNetPipeline at b8 and b1; K2 launches {k2} and K1 launches {k1} in one '
               f'b8 call; every K2 input a view (permute), no copy, in both programs; '
+              f'K1 reads the heads in place in both programs ({k1_inputs[1]}); '
               f'poses per image {n_poses}', flush=True)
 
         # (b) serve raw frames from the artifact and from the live pipeline
@@ -594,8 +645,24 @@ def device_phase():
     return kind, dev
 
 
+def ptxas_report(log: str, kernel: str):
+    """(registers, stack frame bytes, spill store bytes, spill load bytes,
+    ptxas's lines) that `nvcc -Xptxas -v` printed for the one entry
+    function whose name holds `kernel`."""
+    found = [part for part in log.split('Compiling entry function')[1:]
+             if kernel in part.splitlines()[0]]
+    check(len(found) == 1, f'ptxas reported {len(found)} entry functions named {kernel}')
+    frame = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', found[0])
+    regs = re.search(r'Used (\d+) registers', found[0])
+    check(frame is not None and regs is not None, f'no ptxas report for {kernel}')
+    lines = ' | '.join(line.strip() for line in found[0].splitlines()[1:] if line.strip())
+    return (int(regs[1]), int(frame[1]), int(frame[2]), int(frame[3]), lines)
+
+
 def build_phase():
-    """Phase 2: K1 and K2, one nvcc each, in parallel, then loaded."""
+    """Phase 2: K1 and K2, one nvcc each, in parallel, then loaded; what
+    ptxas says of K1's walk, which must keep its state in registers."""
     t0 = time.perf_counter()
     libs = _build.build_all(['traversal', 'sepconv'])
     for name in libs:
@@ -604,23 +671,48 @@ def build_phase():
           f'K2 {K2_SOURCE} -> {os.path.relpath(libs["sepconv"], REPO)} in '
           f'{time.perf_counter() - t0:.2f} s (nvcc {" ".join(_build.NVCC_FLAGS)})',
           flush=True)
+    regs, frame, spill_st, spill_ld, lines = ptxas_report(_build.build_log('traversal'),
+                                                          'traverse_kernel')
+    print(f'build: K1 traverse_kernel, ptxas: {regs} registers, {frame} bytes stack frame, '
+          f'{spill_st} bytes spill stores, {spill_ld} bytes spill loads ({lines})', flush=True)
+    check(frame == 0 and spill_st == 0 and spill_ld == 0,
+          f'K1 walk: {frame} bytes stack frame, {spill_st} + {spill_ld} bytes spilled; '
+          f'its state must stay in registers')
 
 
 def k1_checks(dev) -> float:
-    """Phase 3, K1: against its plain version, bitwise; returns the max
-    abs difference."""
+    """Phase 3, K1: against its plain version, bitwise, at the main path's
+    grid, at 91x161 stride 8, and where the first backward hop to the nose
+    lands on a zero score (`nose_zero_heads`); returns the max abs
+    difference."""
     rng = np.random.RandomState(0)
     max_err = 0.0
-    for b, h, w, stride, k in ((8, 33, 33, 16, 128), (4, 91, 161, 8, 32)):
+    for b, h, w, stride, k, views in ((8, 33, 33, 16, 128, False), (4, 91, 161, 8, 32, True)):
         heads = [torch.from_numpy(a).to(dev) for a in synth_heads(rng, b, h, w)]
+        if views:
+            heads = head_views(heads)
         cfg = DecodeConfig(min_pose_score=0.25, max_candidates=k, score_threshold=0.3)
-        args = _prepare_decode(*heads, stride, cfg)[:6]
-        equal, err, filled = k1_against_plain(args, h, w, stride)
+        args = k1_args(heads, stride, cfg)
+        equal, err, filled, _ = k1_against_plain(args, h, w, stride)
         max_err = max(max_err, err)
         check(equal, f'K1 differs from its plain version at B={b} {h}x{w} K={k} (max {err})')
         check(filled > b * k, f'K1 walk filled only {filled} keypoints at {h}x{w}')
-        print(f'K1 vs plain: B={b} {h}x{w} s{stride} K={k}: bitwise equal '
-              f'(tolerance 0), {filled} keypoints filled', flush=True)
+        print(f'K1 vs plain: B={b} {h}x{w} s{stride} K={k}, heads as rows of '
+              f'{[t.stride(1) for t in args[3:]]} floats: bitwise equal (tolerance 0), '
+              f'{filled} keypoints filled', flush=True)
+    args = k1_args([torch.from_numpy(a).to(dev) for a in nose_zero_heads()], 16,
+                   DecodeConfig(max_candidates=16, score_threshold=0.3))
+    equal, err, filled, ref = k1_against_plain(args, 33, 33, 16)
+    max_err = max(max_err, err)
+    check(equal, f'K1 differs from its plain version where a hop to the nose lands on a '
+                 f'zero score (max {err})')
+    nose = {int(kp): float(score) for kp, score in zip(args[1][0, :4], ref[0][0, :4, 0])}
+    filled_nose = float(np.float32(0.2))
+    check(nose == {1: 0.0, 2: filled_nose, 5: filled_nose, 6: filled_nose},
+          f'nose_zero_heads: nose scores by root keypoint {nose}')
+    print(f'K1 vs plain: the first backward hop to the nose lands on a zero score '
+          f'(nose score by root keypoint {nose}): bitwise equal, {filled} keypoints '
+          f'filled', flush=True)
     return max_err
 
 
@@ -726,6 +818,64 @@ def k2_timing(dev, batch=128):
           f'{k2_ms / bound_sum:.1f}x, plain {k2_plain_ms:.4f} ms', flush=True)
     return (k2_ms, k2_plain_ms, pair_ms, bound_sum, max(bound_by_ms, key=bound_by_ms.get),
             err_max)
+
+
+def k1_timing(dev, peaked, cfg) -> dict:
+    """Phase 7, K1: on the peaked b128 heads (K = 128, 33x33), held bitwise
+    to its plain version, then timed in turns against it (plain, kernel,
+    kernel, plain): per call by CUDA events, host dispatch included, and
+    by CUDA graph replay, the device alone; beside
+    its bytes bound (the hops that fetch in this run's walk) and its
+    latency floor: the graph time of the first candidate alone (B = K = 1),
+    and of that candidate with its score -1, which fetches nothing."""
+    batch = peaked[0].shape[0]
+    args = k1_args(peaked, 16, cfg)
+    equal, err, _, _ = k1_against_plain(args, 33, 33, 16)
+    check(equal, f'K1 differs from its plain version at B={batch} (max {err})')
+    fetches = k1_fetches(args, 33, 33, 16)
+
+    def kernel(*a):
+        return lambda: traversal.traverse_all_candidates(*a, 33, 33, 16)
+
+    def plain():
+        return traversal.traverse_all_candidates_reference(*args, 33, 33, 16)
+
+    runs = {}
+    for name, timer in (('plain', lambda: cuda_ms(plain, 20)),
+                        ('call', lambda: cuda_ms(kernel(*args), 50)),
+                        ('kernel', lambda: graph_ms(kernel(*args))),
+                        ('kernel', lambda: graph_ms(kernel(*args))),
+                        ('call', lambda: cuda_ms(kernel(*args), 50)),
+                        ('plain', lambda: cuda_ms(plain, 20))):
+        runs.setdefault(name, []).append(timer())
+    ms = {name: sum(v) / len(v) for name, v in runs.items()}
+    bound = k1_bound_ms(batch, args[0].shape[1], fetches)
+    one = tuple(a[:1, :1] for a in args[:3]) + tuple(t[:1] for t in args[3:])
+    one_fetches = k1_fetches(one, 33, 33, 16)
+    floor = graph_ms(kernel(*one))
+    dead = graph_ms(kernel(torch.full_like(one[0], -1.0), *one[1:]))
+    print(f'K1 at B={batch} K={args[0].shape[1]} 33x33: kernel {ms["kernel"]:.4f} ms a launch '
+          f'(CUDA graph of 20 launches, the device alone), {ms["call"]:.4f} ms a call (CUDA '
+          f'events, host dispatch included), plain {ms["plain"]:.4f} ms, bound {bound:.4f} ms '
+          f'(bytes; {fetches} fetching hops of {args[0].numel() * 32}), kernel / bound '
+          f'{ms["kernel"] / bound:.1f}x; latency floor: one candidate ({one_fetches} fetching '
+          f'hops) {floor:.4f} ms a launch, one dead candidate (no fetch) {dead:.4f} ms (runs '
+          f'plain, call, kernel, kernel, call, plain: {runs})', flush=True)
+    return {'ms': ms['kernel'], 'call_ms': ms['call'], 'plain_ms': ms['plain'],
+            'bound_ms': bound, 'floor_ms': floor, 'dead_ms': dead, 'err': err}
+
+
+def k1_entry(launches, err, timing) -> dict:
+    """K1's entry of the kernels line: `ms` by CUDA graph replay (the
+    device alone); `call_ms` per call by CUDA events, host dispatch
+    included, as `plain_ms` is timed; the latency floor beside them. No
+    PyTorch call computes the walk, so `library_ms` is null."""
+    return {'name': 'traverse_all_candidates', 'route': 'cuda', 'source': K1_SOURCE,
+            'replaces': K1_REPLACES, 'launches': launches,
+            'max_abs_err': max(err, timing['err']), 'ms': timing['ms'],
+            'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
+            'bound_by': 'bytes', 'library_ms': None, 'call_ms': timing['call_ms'],
+            'floor_ms': timing['floor_ms']}
 
 
 def k2_entry(launches, err, timing) -> dict:
@@ -889,6 +1039,16 @@ def full_run(dev) -> list:
           f'{img_s:.1f} img/s (best of 3 windows of {n_iters}); forward {fwd_ms:.3f} ms, '
           f'peaked decode {dec_ms:.3f} ms, pipeline on its own heads {pipe_ms:.3f} ms '
           f'per batch', flush=True)
+    prep_ms = graph_ms(lambda: _prepare_decode(*peaked, 16, pipe.decode_cfg))
+    prep_call_ms = cuda_ms(lambda: _prepare_decode(*peaked, 16, pipe.decode_cfg), n_iters)
+    copies_ms = graph_ms(lambda: (torch.cat(peaked[:2], dim=-1), peaked[2].contiguous(),
+                                  peaked[3].contiguous()))
+    print(f'_prepare_decode b{batch} 33x33 on the peaked heads: {prep_ms:.4f} ms a call (CUDA '
+          f'graph of 20 calls, the device alone), {prep_call_ms:.4f} ms (CUDA events, host '
+          f'dispatch included); the row copies it made before it passed views (scores '
+          f'and offsets concatenated, dfwd and dbwd made contiguous: '
+          f'{sum(t[0].numel() for t in peaked) * batch * 4 / 1e6:.1f} MB written) '
+          f'{copies_ms:.4f} ms', flush=True)
     del frames
     bgr = torch.randint(0, 256, (batch, 720, 1280, 3), generator=g, device=dev,
                         dtype=torch.uint8)
@@ -910,46 +1070,29 @@ def full_run(dev) -> list:
 
     k2_time = k2_timing(dev, batch)
 
-    args = _prepare_decode(*peaked, 16, pipe.decode_cfg)[:6]
-    equal, err, _ = k1_against_plain(args, 33, 33, 16)
-    max_err = max(max_err, err)
-    check(equal, f'K1 differs from its plain version at B={batch} (max {err})')
-    sov, dft, dbt, cs, ck, rc = args
-    fetches = k1_fetches(args, 33, 33, 16)
-    k1_args = (cs, ck, rc, sov, dft, dbt, 33, 33, 16)
-    times = {}
-    for name, fn in (('plain', traversal.traverse_all_candidates_reference),
-                     ('kernel', traversal.traverse_all_candidates),
-                     ('kernel', traversal.traverse_all_candidates),
-                     ('plain', traversal.traverse_all_candidates_reference)):
-        times.setdefault(name, []).append(cuda_ms(lambda: fn(*k1_args), 50))
-    k1_ms = sum(times['kernel']) / 2
-    plain_ms = sum(times['plain']) / 2
-    k1_bound = k1_bound_ms(batch, 128, fetches)
-    print(f'K1 at B={batch} K=128 33x33: kernel {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, '
-          f'bound {k1_bound:.4f} ms (bytes; {fetches} fetching hops of '
-          f'{batch * 128 * 32}), kernel / bound {k1_ms / k1_bound:.1f}x '
-          f'(runs plain, kernel, kernel, plain: {times})', flush=True)
-
-    return [
-        {'name': 'traverse_all_candidates', 'route': 'cuda', 'source': K1_SOURCE,
-         'replaces': K1_REPLACES, 'launches': launches, 'max_abs_err': max_err,
-         'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': k1_bound, 'bound_by': 'bytes',
-         'library_ms': None},
-        k2_entry(k2_launches, k2_err, k2_time)]
+    k1_time = k1_timing(dev, peaked, pipe.decode_cfg)
+    return [k1_entry(launches, max_err, k1_time), k2_entry(k2_launches, k2_err, k2_time)]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=('k2',),
-                        help='k2: the device and build phases, then K2 alone')
+    parser.add_argument('--only', choices=('k1', 'k2'),
+                        help='the device and build phases, then K1 or K2 alone')
     only = parser.parse_args(argv).only
     found = device_phase()
     if found is None:
         return 1
     kind, dev = found
     build_phase()
-    if only == 'k2':
+    if only == 'k1':
+        traversal.launches = 0
+        k1_err = k1_checks(dev)
+        # No main path runs here: `launches` is the checks'.
+        kernels = [dict(k1_entry(traversal.launches, k1_err,
+                                 k1_timing(dev, peaked_heads(128, 33, 8, dev),
+                                           DecodeConfig(min_pose_score=0.25))),
+                        launches_from='the K1 checks of phase 3, not the main path')]
+    elif only == 'k2':
         k2_err = k2_checks(dev)
         k2_launches = k2_trunk_launches(dev)
         # No main path runs here: `launches` is the trunk check's (2x65x65).

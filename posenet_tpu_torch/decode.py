@@ -2,8 +2,8 @@
 
 The counterpart of `posenet_tpu.decode`, batched over images throughout:
 
-1. `_prepare_decode`: packed row tables, local-max NMS, the top-K
-   candidate list and each candidate's refined root coordinate.
+1. `_prepare_decode`: the heads as row views (no copy), local-max NMS,
+   the top-K candidate list and each candidate's refined root coordinate.
 2. `ops.traversal.traverse_all_candidates`: every candidate's 17-keypoint
    tree walk, in parallel (the CUDA kernel on the card).
 3. `_greedy_accept`: the sequential accept over the ranked candidates, as
@@ -20,8 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from posenet_tpu_torch.config import DecodeConfig
-from posenet_tpu_torch.constants import (EDGES, LOCAL_MAXIMUM_RADIUS,
-                                         NUM_EDGES, NUM_KEYPOINTS)
+from posenet_tpu_torch.constants import EDGES, LOCAL_MAXIMUM_RADIUS, NUM_KEYPOINTS
 from posenet_tpu_torch.ops.nms import local_max_mask, top_k_candidates
 from posenet_tpu_torch.ops.traversal import traverse_all_candidates
 
@@ -83,15 +82,15 @@ def _prepare_decode(heatmap, offsets, dfwd, dbwd, output_stride: int,
                     cfg: DecodeConfig):
     """Stage 1 on NHWC heads (B, H, W, C).
 
-    Returns (sov_table (B,HW,51), dfwd_table, dbwd_table (B,HW,32),
+    Returns (scores (B,HW,17), offsets (B,HW,34), dfwd, dbwd (B,HW,32),
     cand_scores (B,K), cand_kp (B,K) int32, root_coords (B,K,2),
-    candidate_count (B,) int32), the tables contiguous.
+    candidate_count (B,) int32). The four row tensors are views of the
+    heads: on `run_heads`' output the offsets and displacements stay views
+    of its one 115-channel tensor, which the tree walk reads in place.
     """
     b, h, w, _ = heatmap.shape
-    sov_table = torch.cat([heatmap, offsets], dim=-1).reshape(
-        b, h * w, 3 * NUM_KEYPOINTS)
-    dfwd_table = dfwd.reshape(b, h * w, 2 * NUM_EDGES).contiguous()
-    dbwd_table = dbwd.reshape(b, h * w, 2 * NUM_EDGES).contiguous()
+    scores, offsets, dfwd, dbwd = (t.view(b, h * w, t.shape[-1])
+                                   for t in (heatmap, offsets, dfwd, dbwd))
 
     planes = heatmap.permute(0, 3, 1, 2)                         # (B,17,H,W)
     mask = local_max_mask(planes, cfg.score_threshold, LOCAL_MAXIMUM_RADIUS)
@@ -100,14 +99,13 @@ def _prepare_decode(heatmap, offsets, dfwd, dbwd, output_stride: int,
         planes, mask, cfg.max_candidates)
 
     # Root image coords: cell*stride + the root keypoint's offset there.
-    base = (cand_y * w + cand_x) * (3 * NUM_KEYPOINTS) + NUM_KEYPOINTS + cand_kp
-    flat = sov_table.reshape(b, -1)
-    off = torch.stack([flat.gather(1, base),
-                       flat.gather(1, base + NUM_KEYPOINTS)], dim=-1)
+    rows = torch.gather(offsets, 1, (cand_y * w + cand_x)[..., None].expand(
+        -1, -1, 2 * NUM_KEYPOINTS))                              # (B, K, 34)
+    off = rows.gather(2, torch.stack([cand_kp, cand_kp + NUM_KEYPOINTS], dim=-1))
     cand_cell = torch.stack([cand_y, cand_x], dim=-1).float()
     root_coords = cand_cell * output_stride + off                # (B, K, 2)
-    return (sov_table, dfwd_table, dbwd_table, cand_scores,
-            cand_kp.to(torch.int32), root_coords, n_cand)
+    return (scores, offsets, dfwd, dbwd, cand_scores, cand_kp.to(torch.int32),
+            root_coords, n_cand)
 
 
 def _greedy_accept(cand_scores, cand_kp, root_coords, all_scores, all_coords,
@@ -175,10 +173,10 @@ def decode_batch(heatmap, offsets, dfwd, dbwd, output_stride: int,
     on the heads' device. The tree walk is the CUDA kernel for CUDA
     tensors and its plain version for CPU tensors."""
     h, w = heatmap.shape[1], heatmap.shape[2]
-    sov, dft, dbt, cand_scores, cand_kp, root_coords, n_cand = _prepare_decode(
-        heatmap, offsets, dfwd, dbwd, output_stride, cfg)
+    rows = _prepare_decode(heatmap, offsets, dfwd, dbwd, output_stride, cfg)
+    cand_scores, cand_kp, root_coords, n_cand = rows[4:]
     all_scores, all_coords, all_offsets = traverse_all_candidates(
-        cand_scores, cand_kp, root_coords, sov, dft, dbt, h, w, output_stride)
+        cand_scores, cand_kp, root_coords, *rows[:4], h, w, output_stride)
     return _greedy_accept(cand_scores, cand_kp, root_coords, all_scores,
                           all_coords, all_offsets, cfg)._replace(
                               candidate_count=n_cand)

@@ -20,7 +20,8 @@ from posenet_tpu_torch.models.model_factory import resolve_device
 
 
 def _to_hwc(t, device) -> torch.Tensor:
-    """One image's CHW array-like -> HWC float32 tensor on `device`."""
+    """One image's CHW array-like -> HWC float32 tensor on `device`, its
+    channels adjacent in memory, as the tree walk's kernel reads them."""
     a = torch.as_tensor(t, dtype=torch.float32, device=device)
     if a.ndim == 4:  # tolerate an un-squeezed batch dim of 1, NOT a batch
         if a.shape[0] != 1:
@@ -28,7 +29,7 @@ def _to_hwc(t, device) -> torch.Tensor:
                 f"decode_multiple_poses takes ONE image's CHW heads; got a "
                 f"batch of {a.shape[0]}; use decode_batch for batched decoding")
         a = a[0]
-    return a.permute(1, 2, 0)
+    return a.permute(1, 2, 0).contiguous()
 
 
 def decode_multiple_poses(

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface. At first use it is
 compiled with nvcc into `posenet_tpu_torch/_build/<name>-<hash>.so`, keyed
 by a hash of the source and the flags, and loaded with ctypes; later calls
-in the process reuse the loaded library. Host C++ sources (the repo's
+in the process reuse the loaded library. What the compiler printed (with
+`-Xptxas -v`: each kernel's registers, stack frame and spills) is kept
+beside it as `<name>-<hash>.log` (`build_log`). Host C++ sources (the repo's
 `native/preprocess.cpp`) are built the same way with the host compiler
 (`build_host`), keyed also by the CPU target that `-march=native` resolves
 to. Nothing here runs at import time.
@@ -30,8 +32,9 @@ BUILD_DIR = _PKG_DIR / '_build'
 # the plain PyTorch versions (the decoder's cell math is bit-exact; the
 # sepconv kernel's explicit fused multiply-adds are exact-product ones).
 # Division stays IEEE (nvcc's default -prec-div=true; no fast math).
+# -Xptxas -v: ptxas reports each kernel's registers, stack frame and spills.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-fmad=false', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
 # The flags of native/Makefile (CXXFLAGS, then LDFLAGS). -march=native ties
 # a build to the CPU it was made on, so the key of a host build also holds
 # what it resolves to (`host_target`).
@@ -79,8 +82,9 @@ def _compile(src: Path, name: str, compiler: str, flags: Sequence[str],
              target: str = '') -> Path:
     """Compile `src` into `_build/<name>-<hash>.so` unless the build of this
     source with these flags for this `target` is already there; returns the
-    library's path. Raises RuntimeError, with the compiler's output, if the
-    compile fails."""
+    library's path; the compiler's output goes to the same path with the
+    suffix `.log`. Raises RuntimeError, with that output, if the compile
+    fails."""
     digest = hashlib.sha256(src.read_bytes())
     digest.update(' '.join(flags).encode())
     digest.update(target.encode())
@@ -93,6 +97,7 @@ def _compile(src: Path, name: str, compiler: str, flags: Sequence[str],
         if done.returncode != 0:
             raise RuntimeError(f'{os.path.basename(compiler)} failed on {src.name} '
                                f'(exit {done.returncode}):\n{done.stdout}{done.stderr}')
+        out.with_suffix('.log').write_text(done.stdout + done.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -100,6 +105,11 @@ def _compile(src: Path, name: str, compiler: str, flags: Sequence[str],
 def build(name: str) -> Path:
     """Compile `csrc/<name>.cu` with nvcc (see `_compile`)."""
     return _compile(_SRC_DIR / f'{name}.cu', name, nvcc_path(), NVCC_FLAGS)
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built `csrc/<name>.cu` (see `build`)."""
+    return build(name).with_suffix('.log').read_text()
 
 
 def build_host(src: Path) -> Path:

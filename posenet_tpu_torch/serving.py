@@ -52,7 +52,10 @@ from posenet_tpu_torch.pipeline import infer, to_device
 # `format` tells this package's artifacts from the JAX package's, whose
 # meta.json has no such key.
 FORMAT = 'posenet_tpu_torch.export'
-FORMAT_VERSION = 1
+# 2: the tree walk's op takes the heads as four row tensors (scores,
+# offsets, dfwd, dbwd) where version 1 took three packed tables, so a
+# version-1 `cuda` program cannot run here and must be exported again.
+FORMAT_VERSION = 2
 PLATFORMS = ('cuda', 'cpu')
 
 

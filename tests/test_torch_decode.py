@@ -1,5 +1,8 @@
 """The PyTorch port's decoder against the JAX package's, on `synth_heads`
-grids (33x33 at stride 16, 91x161 at stride 8) and tie-heavy inputs.
+grids (33x33 at stride 16, 91x161 at stride 8), tie-heavy inputs, heads
+laid out as the forward writes them (views of one 115-channel tensor) and
+a walk whose first backward hop to the nose lands on a zero score
+(`tests.torch_k1_cases.nose_zero_heads`).
 
 Tolerances: candidate lists, tables, root coordinates, the tree walk,
 keypoint scores and keypoint coordinates are copies and exactly rounded
@@ -29,11 +32,13 @@ from posenet_tpu.ops.pallas.traversal import (_hop_metadata,
 
 from posenet_tpu_torch import constants
 from posenet_tpu_torch import decode
-from posenet_tpu_torch.config import DecodeConfig
+from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.decode_multi import decode_multiple_poses
+from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.ops import traversal
 
 from tests.test_decode import synth_heads
+from tests.torch_k1_cases import head_views, nose_zero_heads
 
 GRIDS = [((33, 33), 16), ((91, 161), 8)]
 
@@ -49,9 +54,11 @@ def cuda():
 
 
 def _batch(grid, seeds):
-    """NHWC numpy heads (B, H, W, C) from synth_heads (CHW) per seed."""
+    """NHWC numpy heads (B, H, W, C), C-contiguous, from synth_heads (CHW)
+    per seed."""
     heads = [synth_heads(s, r=grid) for s in seeds]
-    return [np.stack([h[i].transpose(1, 2, 0) for h in heads]) for i in range(4)]
+    return [np.ascontiguousarray(np.stack([h[i].transpose(1, 2, 0) for h in heads]))
+            for i in range(4)]
 
 
 def _cfgs(k, **kw):
@@ -80,6 +87,21 @@ def _jax_walk(tables, h, w, stride):
 
 def _torch_prepare(nhwc, stride, cfg):
     return decode._prepare_decode(*[torch.from_numpy(a) for a in nhwc], stride, cfg)
+
+
+def _rows(sov, dft, dbt):
+    """The JAX package's row tables as the walk's four row tensors: the
+    scores and offsets are views of its packed sov table."""
+    sov, dft, dbt = (torch.tensor(np.asarray(t)) for t in (sov, dft, dbt))
+    return sov[..., :17], sov[..., 17:], dft, dbt
+
+
+def _jax_walk_on(nhwc, h, w, stride, jcfg):
+    """The JAX stage 1 and level-batched walk; returns (its candidates and
+    rows as the port's walk takes them, the walk's outputs)."""
+    sov, dft, dbt, cs, ck, rc, _ = _jax_prepare(nhwc, stride, jcfg)
+    ref = _jax_walk((sov, dft, dbt, cs, ck, rc), h, w, stride)
+    return [torch.tensor(x) for x in (cs, ck, rc)] + list(_rows(sov, dft, dbt)), ref
 
 
 def _assert_poses(ours, ref):
@@ -123,7 +145,8 @@ def test_prepare_decode_matches_jax(grid, stride, k):
     nhwc = _batch(grid, (3, 4))
     jcfg, tcfg = _cfgs(k)
     ref = _jax_prepare(nhwc, stride, jcfg)
-    ours = _torch_prepare(nhwc, stride, tcfg)
+    scores, offsets, *ours = _torch_prepare(nhwc, stride, tcfg)
+    ours = [torch.cat([scores, offsets], dim=-1)] + ours   # the JAX sov table
     for name, a, b in zip(('sov', 'dfwd', 'dbwd', 'cand_scores', 'cand_kp',
                            'root_coords', 'n_cand'), ours, ref):
         assert tuple(a.shape) == b.shape, name
@@ -154,7 +177,8 @@ def test_candidates_tie_order_matches_jax(grid, quantum, masked, seed):
         ref = _jax_prepare(nhwc, 16, jcfg)
         ours = _torch_prepare(nhwc, 16, tcfg)
         for i in (3, 4, 5, 6):   # scores, keypoint ids, root coords, count
-            np.testing.assert_array_equal(ours[i].numpy(), ref[i],
+            i_ours = i + 1           # after the four row views
+            np.testing.assert_array_equal(ours[i_ours].numpy(), ref[i],
                                           err_msg=f"k={k} output {i}")
 
 
@@ -164,13 +188,87 @@ def test_traversal_reference_matches_xla(grid, stride):
     h, w = grid
     nhwc = _batch(grid, (3, 4))
     jcfg, _ = _cfgs(32)
-    sov, dft, dbt, cs, ck, rc, _ = _jax_prepare(nhwc, stride, jcfg)
-    ref = _jax_walk((sov, dft, dbt, cs, ck, rc), h, w, stride)
-    t = [torch.tensor(x) for x in (cs, ck, rc, sov, dft, dbt)]
+    t, ref = _jax_walk_on(nhwc, h, w, stride, jcfg)
     ours = traversal.traverse_all_candidates_reference(*t, h, w, stride)
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert int((ours[0] > 0).sum()) > 2 * 32   # the walk filled keypoints
+
+
+@pytest.mark.parametrize("grid,stride", GRIDS)
+def test_traversal_reference_on_head_views_equals_tables(grid, stride):
+    """The heads as `run_heads` leaves them, views of one 115-channel
+    tensor (rows 115 floats apart, the scores too), walk exactly as the
+    contiguous tables do, and as the JAX walk does."""
+    h, w = grid
+    nhwc = _batch(grid, (5, 6))
+    jcfg, tcfg = _cfgs(32)
+    heads = [torch.from_numpy(a) for a in nhwc]
+    views = decode._prepare_decode(*head_views(heads), stride, tcfg)
+    tables = decode._prepare_decode(*heads, stride, tcfg)
+    assert [r.stride(1) for r in views[:4]] == [115] * 4
+    assert [r.stride(1) for r in tables[:4]] == [17, 34, 32, 32]
+    ours = traversal.traverse_all_candidates_reference(*views[4:7], *views[:4], h, w, stride)
+    plain = traversal.traverse_all_candidates_reference(*tables[4:7], *tables[:4], h, w, stride)
+    _, ref = _jax_walk_on(nhwc, h, w, stride, jcfg)
+    for a, b, r in zip(ours, plain, ref):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+
+
+def test_traversal_zero_score_landing_at_the_nose_matches_jax():
+    """The first backward hop to the nose (from the left eye) lands on a
+    zero nose score, which leaves the nose empty for that candidate; the
+    three other roots' hops fill it. (With one root a candidate, only the
+    root's ancestors fill in the backward pass, so no second hop of that
+    level is live for the same candidate.) The plain walk against the JAX
+    walk and the TPU kernel in interpret mode."""
+    nhwc = nose_zero_heads()
+    jcfg = JaxDecodeConfig(max_candidates=16, score_threshold=0.3)
+    t, ref = _jax_walk_on(nhwc, 33, 33, 16, jcfg)
+    ours = traversal.traverse_all_candidates(*t, 33, 33, 16)   # CPU: plain route
+    sov, dft, dbt, cs, ck, rc, _ = _jax_prepare(nhwc, 16, jcfg)
+    kernel = traverse_all_candidates_pallas(
+        *[jnp.asarray(x) for x in (cs, ck, rc, sov, dft, dbt)], 33, 33, 16,
+        interpret=True, version=2)
+    for a, b, c in zip(ours, ref, kernel):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+    assert t[1][0, :4].tolist() == [1, 2, 5, 6]             # the four roots, in rank order
+    nose = ours[0][0, :4, 0].tolist()
+    assert nose[0] == 0.0 and nose[1:] == [np.float32(0.2)] * 3
+    assert ours[1][0, 0, 0].tolist() != [0.0, 0.0]          # landed, and left empty
+
+
+def test_prepare_decode_reads_heads_in_place():
+    """On the forward's heads, `_prepare_decode` copies nothing: the offset
+    and displacement rows share the 115-channel heads tensor's memory, the
+    score rows the heatmap's, and the walk on them matches the JAX walk on
+    the JAX package's packed tables."""
+    cfg = ModelConfig(model_id=50, output_stride=16)
+    params = mobilenet_v1.init_params(torch.Generator().manual_seed(3), cfg)
+    x = torch.from_numpy(np.random.RandomState(3).uniform(-1, 1, (2, 65, 65, 3))
+                         .astype(np.float32))
+    heads = mobilenet_v1.forward(params, x, cfg)
+    order = ('heatmap', 'offset', 'displacement_fwd', 'displacement_bwd')
+    rows = decode._prepare_decode(*[heads[k] for k in order], 16,
+                                  DecodeConfig(score_threshold=0.0, max_candidates=16))
+    base = heads['offset'].untyped_storage().data_ptr()
+    assert heads['displacement_bwd'].untyped_storage().data_ptr() == base
+    for r, (name, cols, first) in zip(rows[1:4], (('offsets', 34, 17), ('dfwd', 32, 51),
+                                                  ('dbwd', 32, 83))):
+        assert r.untyped_storage().data_ptr() == base, name
+        assert r.data_ptr() == base + 4 * first and r.stride() == (5 * 5 * 115, 115, 1)
+        assert r.shape == (2, 25, cols)
+    assert rows[0].untyped_storage().data_ptr() == heads['heatmap'].untyped_storage().data_ptr()
+    nhwc = [heads[k].numpy() for k in order]
+    t, ref = _jax_walk_on(nhwc, 5, 5, 16, JaxDecodeConfig(score_threshold=0.0,
+                                                          max_candidates=16))
+    for a, b in zip(t, (*rows[4:7], *rows[:4])):
+        assert torch.equal(a, b)
+    ours = traversal.traverse_all_candidates(*rows[4:7], *rows[:4], 5, 5, 16)
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_traversal_reference_matches_pallas_interpret():
@@ -185,7 +283,7 @@ def test_traversal_reference_matches_pallas_interpret():
     ref = traverse_all_candidates_pallas(
         *[jnp.asarray(x) for x in (cs, ck, rc, sov, dft, dbt)], h, w, 16,
         interpret=True, version=2)
-    t = [torch.tensor(x) for x in (cs, ck, rc, sov, dft, dbt)]
+    t = [torch.tensor(x) for x in (cs, ck, rc)] + list(_rows(sov, dft, dbt))
     ours = traversal.traverse_all_candidates(*t, h, w, 16)   # CPU: plain route
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -304,16 +402,85 @@ def test_kernel_matches_plain_on_card(cuda, grid, stride, k, b):
     h, w = grid
     nhwc = _batch(grid, tuple(range(30, 30 + b)))
     _, tcfg = _cfgs(k)
-    sov, dft, dbt, cs, ck, rc, _ = decode._prepare_decode(
-        *[torch.from_numpy(a).to(cuda) for a in nhwc], stride, tcfg)
+    rows = decode._prepare_decode(*[torch.from_numpy(a).to(cuda) for a in nhwc], stride, tcfg)
+    _assert_kernel_is_plain(rows, h, w, stride)
+
+
+def _assert_kernel_is_plain(rows, h, w, stride):
+    """K1 on `_prepare_decode`'s outputs against its plain version, bit for
+    bit, with one launch counted; returns the plain outputs."""
+    args = (*rows[4:7], *rows[:4], h, w, stride)
     before = traversal.launches
-    got = traversal.traverse_all_candidates(cs, ck, rc, sov, dft, dbt, h, w, stride)
+    got = traversal.traverse_all_candidates(*args)
     torch.cuda.synchronize()
     assert traversal.launches == before + 1
-    ref = traversal.traverse_all_candidates_reference(cs, ck, rc, sov, dft, dbt,
-                                                      h, w, stride)
+    ref = traversal.traverse_all_candidates_reference(*args)
     for a, r in zip(got, ref):
         assert torch.equal(a, r)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,stride", GRIDS)
+def test_kernel_on_head_views_on_card(cuda, grid, stride):
+    """K1 reads views of one 115-channel heads tensor (rows 115 floats
+    apart) bit for bit as its plain version does, and as it reads the
+    same heads as contiguous tables."""
+    h, w = grid
+    heads = [torch.from_numpy(a).to(cuda) for a in _batch(grid, (40, 41, 42))]
+    _, tcfg = _cfgs(64)
+    rows = decode._prepare_decode(*head_views(heads), stride, tcfg)
+    assert [r.stride(1) for r in rows[:4]] == [115] * 4
+    ref = _assert_kernel_is_plain(rows, h, w, stride)
+    tables = decode._prepare_decode(*heads, stride, tcfg)
+    for a, r in zip(traversal.traverse_all_candidates(*tables[4:7], *tables[:4], h, w, stride),
+                    ref):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_kernel_zero_score_landing_at_the_nose_on_card(cuda):
+    """`nose_zero_heads` on the card: the first backward hop to the nose
+    lands on a zero score; K1 is its plain version bit for bit."""
+    rows = decode._prepare_decode(*[torch.from_numpy(a).to(cuda) for a in nose_zero_heads()],
+                                  16, DecodeConfig(max_candidates=16, score_threshold=0.3))
+    ref = _assert_kernel_is_plain(rows, 33, 33, 16)
+    assert ref[0][0, :4, 0].tolist() == [0.0] + [np.float32(0.2)] * 3
+
+
+@pytest.mark.cuda
+def test_prepare_decode_reads_heads_in_place_on_card(cuda):
+    """The card's forward writes the heads channels_last: `_prepare_decode`
+    passes K1 views of them (rows 115 floats apart), no copy."""
+    cfg = ModelConfig(model_id=50, output_stride=16)
+    params = mobilenet_v1.init_params(torch.Generator().manual_seed(3), cfg)
+    params = mobilenet_v1.cast_params(params, torch.float32, cuda)
+    x = torch.from_numpy(np.random.RandomState(3).uniform(-1, 1, (2, 129, 129, 3))
+                         .astype(np.float32)).to(cuda)
+    heads = mobilenet_v1.forward(params, x, cfg)
+    rows = decode._prepare_decode(heads['heatmap'], heads['offset'], heads['displacement_fwd'],
+                                  heads['displacement_bwd'], 16,
+                                  DecodeConfig(score_threshold=0.0, max_candidates=64))
+    base = heads['offset'].untyped_storage().data_ptr()
+    assert all(r.untyped_storage().data_ptr() == base and r.stride(1) == 115
+               for r in rows[1:4])
+    _assert_kernel_is_plain(rows, 9, 9, 16)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_another_hop_table(cuda, monkeypatch):
+    """The C entry compares the hop table it is passed with the one
+    compiled in; on a mismatch it launches nothing and the op raises."""
+    nhwc = _batch((9, 11), (1,))
+    rows = decode._prepare_decode(*[torch.from_numpy(a).to(cuda) for a in nhwc], 16,
+                                  DecodeConfig(max_candidates=16, score_threshold=0.3))
+    bad = traversal._kernel()[1].copy()
+    bad[1, 12], bad[1, 13] = bad[1, 13], bad[1, 12]   # two sources of the nose's level swapped
+    monkeypatch.setitem(traversal._kernel_cache, 'hops', bad)
+    before = traversal.launches
+    with pytest.raises(RuntimeError, match="hop table"):
+        traversal.traverse_all_candidates(*rows[4:7], *rows[:4], 9, 11, 16)
+    assert traversal.launches == before
 
 
 @pytest.mark.cuda

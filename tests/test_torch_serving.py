@@ -40,6 +40,7 @@ from posenet_tpu_torch.serving import load_serving_artifact, save_serving_artifa
 from tests.make_fixture_checkpoint import FIXTURE_PATH
 from tests.test_torch_decode import cuda  # noqa: F401  (fixture)
 from tests.tfjs_fixture import synth_photo
+from tests.torch_k1_cases import k1_reads_heads_in_place
 
 PHOTO_HW = (353, 481)      # the fixture's scenes; stride-valid at 16
 DCFG = DecodeConfig(min_pose_score=0.25)
@@ -189,6 +190,13 @@ def test_loader_rejects_other_formats(artifact, jax_artifact, tmp_path):
     _rewrite_meta(artifact[1].path, newer, format_version=serving.FORMAT_VERSION + 1)
     with pytest.raises(ValueError, match="format_version"):
         load_serving_artifact(newer)
+    # Version 1's K1 op took three packed tables: such a program must be
+    # exported again, not fail inside deserialization.
+    assert serving.FORMAT_VERSION == 2
+    older = str(tmp_path / "older.posenet")
+    _rewrite_meta(artifact[1].path, older, format_version=1)
+    with pytest.raises(ValueError, match="has format_version 1; this loader reads 2"):
+        load_serving_artifact(older)
 
 
 def test_export_rejects_bad_configs(artifact, tmp_path):
@@ -298,10 +306,9 @@ def _k1_args(device="cpu"):
     from posenet_tpu_torch.decode import _prepare_decode
     from tests.test_torch_decode import _batch
 
-    heads = [torch.from_numpy(h) for h in _batch((9, 11), (1, 2))]
-    sov, dft, dbt, cs, ck, rc, _ = _prepare_decode(
-        *heads, 16, DecodeConfig(max_candidates=16, score_threshold=0.3))
-    return [a.to(device) for a in (cs, ck, rc, sov, dft, dbt)] + [9, 11, 16]
+    heads = [torch.from_numpy(h).to(device) for h in _batch((9, 11), (1, 2))]
+    rows = _prepare_decode(*heads, 16, DecodeConfig(max_candidates=16, score_threshold=0.3))
+    return [*rows[4:7], *rows[:4], 9, 11, 16]
 
 
 OPS = {
@@ -362,17 +369,23 @@ def test_custom_op_matches_plain_on_card(cuda, name):   # noqa: F811
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(OPS))
-def test_custom_op_rejects_strided_input_on_card(cuda, name):   # noqa: F811
+@pytest.mark.parametrize("name,arg,match", [
+    pytest.param("sepconv", 0, "contiguous", id="sepconv"),
+    pytest.param("traverse_all_candidates", 0, "contiguous", id="traverse_all_candidates"),
+    pytest.param("traverse_all_candidates", 4, "unit column stride",
+                 id="traverse_all_candidates-offsets"),
+])
+def test_custom_op_rejects_strided_input_on_card(cuda, name, arg, match):   # noqa: F811
     """A loaded program calls the op past the wrapper's checks, so the op
-    itself refuses memory its kernel would misread, and launches nothing."""
+    itself refuses memory its kernel would misread, and launches nothing:
+    a strided first input, and (K1) a row tensor whose columns are apart."""
     op, _, make_args = OPS[name]
     args = make_args(cuda)
-    args[0] = args[0].repeat_interleave(2, -1)[..., ::2]   # same values, stride 2
-    assert not args[0].is_contiguous()
+    args[arg] = args[arg].repeat_interleave(2, -1)[..., ::2]   # same values, stride 2
+    assert args[arg].stride(-1) == 2
     counter = sepconv if name == "sepconv" else traversal
     before = counter.launches
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(ValueError, match=match):
         op()(*args)
     assert counter.launches == before
 
@@ -398,9 +411,11 @@ def test_cuda_artifact_round_trip(cuda, tmp_path):   # noqa: F811
     torch.cuda.synchronize()
     assert sepconv.launches - k2 == 9 and traversal.launches - k1 >= 1
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    # Each K2 node reads a view of the previous layer's output, not a copy.
+    # Each K2 node reads a view of the previous layer's output, not a copy,
+    # and K1 reads views of the heads.
     made_by = [n.args[0].target for n in art._program(2).graph.nodes
                if n.target == torch.ops.posenet_tpu_torch.sepconv.default]
     assert made_by == [torch.ops.aten.permute.default] * 9
+    k1_reads_heads_in_place(art._program(2).graph)
     on_cpu = load_serving_artifact(path, device="cpu")(frames)
     assert on_cpu.pose_scores.device.type == "cpu"
