@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # every phase: what a run must pass
     python3 chip_smoke.py --only k1   # device, build, K1's checks and timing
     python3 chip_smoke.py --only k2   # device, build, K2's checks and timing
+    python3 chip_smoke.py --only apps # device, build, phase 8
 
 Phases, each printing its own line; any failure exits nonzero and prints
 no result:
@@ -69,14 +70,42 @@ no result:
    CUDA graph replay (the device alone) and per call by CUDA events (host
    dispatch included), beside its bound (the hops that fetch in this run's
    walk) and its latency floor (one candidate alone).
-Then one JSON line describing the kernels, and as the last line
+8. the single pose and the apps, in float32 as the JAX apps run. (1)
+   `decode_single_pose` on the card against the same call on the CPU,
+   bitwise with the same root and one K1 launch a call, on synthesized
+   heads at 33x33 s16 and 91x161 s8, the fixture m50 s16's heads of a
+   synthesized photo and a heatmap with nothing above the threshold; K1 at
+   that B = K = 1 shape held to its plain version and timed, and the whole
+   call timed on the card and on the CPU. Where cv2 imports (else one line
+   says so): (2) each app's `main(argv)` in-process with its default
+   device, m101 s16 random weights, float32 with TF32 off (each app turns
+   it off), inputs written with numpy and cv2 into a temporary directory
+   (the working directory meanwhile): image_demo on 4 photos 720x1280,
+   cold and then warm (the second run at a shape in the process),
+   benchmark per frame (20 frames; again with --profile for its stage
+   breakdown) and at --batch_size 128 --image_size 513 with --profile (the
+   traced batch's device time by kernel), webcam_demo on a stand-in
+   capture of 8 frames cold and 24 warm, then webcam_demo's own loop with
+   `StageTimer` around the helpers it calls, video_demo on a 40-frame
+   720x1280 mp4 at 513x513 batch 16, with the host resize and with
+   --device_preprocess; outputs, K1's launches over each run, and each
+   app's FPS line beside the card's `name, power.limit`. Then the
+   per-frame decode at the per-frame apps' grids (46x81 and 33x58 from
+   one 720x1280 frame's m101 heads): `decode_batch` on the card against
+   the CPU, and K1 on its recorded arguments against its plain version.
+   (3) video_demo --poses_out with the fixture m50 s16 weights (./_models)
+   on the card against --device cpu: equal pose counts, coordinates within
+   1e-3 px.
+Then one JSON line describing the kernels (K1's with its launches on each
+path of phases 5 and 8), and as the last line
 {"ok": true, "device": {...}}. Its times are CUDA events per call (host
 dispatch included), with one exception: K1's `ms` is CUDA graph replay,
 the device alone, because its per-call time is the host's; K1's
 `call_ms` is the per-call time, the method of its `plain_ms` (the plain
 version cannot be captured in a graph: it copies its stride to the
 card) and of K1's `ms` before the graph timing. `--only k1` runs phases 1, 2, K1's part of
-3 and K1's timing of 7; `--only k2` runs phases 1, 2, K2's part of 3, the
+3 and K1's timing of 7; `--only apps` runs phases 1, 2 and 8, its K1
+entry timed at the single pose's shape; `--only k2` runs phases 1, 2, K2's part of 3, the
 bf16 trunk check of 4 and K2's per-layer timing of 7; each then prints the
 same two lines (the kernel's entry; its `launches` from the checks, as
 `launches_from` says).
@@ -89,11 +118,14 @@ f32), the H100 SXM's published rates at 700 W.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
 import resource
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -106,7 +138,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from posenet_tpu_torch import PoseNetPipeline, load_model, native_preprocess
+from posenet_tpu_torch import (PoseNetPipeline, decode, decode_single_pose, load_model,
+                               native_preprocess)
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.converter import weights
 from posenet_tpu_torch.decode import (_BWD_LEVELS, _FWD_LEVELS, DecodedPoses, _prepare_decode,
@@ -114,7 +147,8 @@ from posenet_tpu_torch.decode import (_BWD_LEVELS, _FWD_LEVELS, DecodedPoses, _p
 from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.ops import _build, sepconv, traversal
 from posenet_tpu_torch.pipeline import infer, infer_raw, normalize
-from posenet_tpu_torch.preprocess import preprocess_on_device
+from posenet_tpu_torch.preprocess import preprocess_on_device, process_input
+from posenet_tpu_torch.profiling import StageTimer
 from posenet_tpu_torch.server import (LivePipelineBackend, PoseServer, _Request,
                                       make_http_server)
 from posenet_tpu_torch.serving import load_serving_artifact, save_serving_artifact
@@ -136,6 +170,7 @@ K2_OTHER_SHAPES = ((257, 257, 16, 32, 0), (257, 257, 24, 48, 0), (17, 17, 1024, 
                    (129, 129, 64, 64, 0), (129, 129, 96, 96, 0), (65, 65, 128, 256, 0),
                    (65, 65, 192, 192, 0), (65, 65, 192, 384, 0), (65, 65, 256, 512, 0),
                    (33, 33, 256, 256, 0), (33, 33, 384, 384, 0))
+HEAD_ORDER = ('heatmap', 'offset', 'displacement_fwd', 'displacement_bwd')
 HBM_BYTES_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -626,7 +661,8 @@ def serving_breakdown(model, dcfg, batch=32, reps=5):
 
 def device_phase():
     """Phase 1: the card's name and power limit, versions; TF32 off.
-    Returns (kind, device), or None without CUDA."""
+    Returns (kind, device, the `name, power.limit` line), or None without
+    CUDA."""
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on an NVIDIA GPU',
               file=sys.stderr)
@@ -634,7 +670,8 @@ def device_phase():
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0])
+    smi = smi.splitlines()[0]
+    print(smi)
     kind = torch.cuda.get_device_name(0)
     print(f'device: {kind}; torch {torch.__version__}; CUDA {torch.version.cuda}; '
           f'cuDNN {torch.backends.cudnn.version()}', flush=True)
@@ -642,7 +679,7 @@ def device_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    return kind, dev
+    return kind, dev, smi
 
 
 def ptxas_report(log: str, kernel: str):
@@ -888,8 +925,373 @@ def k2_entry(launches, err, timing) -> dict:
             'bound_by': bound_by, 'library_ms': pair_ms}
 
 
-def full_run(dev) -> list:
-    """Phases 3-7; returns the kernels' entries."""
+class FakeCapture:
+    """A stand-in for cv2.VideoCapture over a list of BGR frames."""
+
+    def __init__(self, frames):
+        self.frames = list(frames)
+
+    def set(self, *_):
+        return True
+
+    def read(self):
+        if not self.frames:
+            return False, None
+        return True, self.frames.pop(0)
+
+
+def run_app(module, argv):
+    """An app's `main(argv)` in-process, its standard output captured, with
+    the K1 count set to 0 just before and read just after; returns (its
+    output, K1 launches, host seconds)."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    traversal.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        module.main(argv)
+    torch.cuda.synchronize()
+    return out.getvalue(), traversal.launches, time.perf_counter() - t0
+
+
+def printed_fps(out: str) -> float:
+    """The FPS an app printed: 'Average FPS: x', or video_demo's 'x FPS'."""
+    found = re.findall(r'Average FPS:\s*([0-9.eE+-]+)', out) or re.findall(r'([0-9.]+) FPS', out)
+    check(len(found) == 1, f'no FPS line in the app\'s output: {out[-500:]}')
+    return float(found[0])
+
+
+def recorded_k1_args(fn, *args):
+    """fn(*args) with the calls of K1's wrapper from `decode` recorded:
+    (fn's result, the first call's seven tensor arguments)."""
+    seen = []
+    through = decode.traverse_all_candidates
+    decode.traverse_all_candidates = lambda *a: seen.append(a) or through(*a)
+    try:
+        out = fn(*args)
+    finally:
+        decode.traverse_all_candidates = through
+    return out, seen[0][:7]
+
+
+def single_pose_phase(dev):
+    """Phase 8 (1): `decode_single_pose` on the card against the same call
+    on the CPU (K1's plain version), bitwise, with one K1 launch a call, on
+    synthesized heads at 33x33 s16 and 91x161 s8, on the fixture m50 s16's
+    heads of a synthesized photo, and on a heatmap with nothing above the
+    threshold; then K1 at this B = K = 1 shape, held to its plain version
+    and timed. Returns (K1's timing dict, launches over the checked calls)."""
+    rng = np.random.RandomState(8)
+    cases = [(f'synth {h}x{w} s{s}', [a[0] for a in synth_heads(rng, 1, h, w)], s)
+             for h, w, s in ((33, 33, 16), (91, 161, 8))]
+    params = weights.params_from_jax(weights.load_params_npz(FIXTURE))
+    photo = torch.from_numpy(synth_photo(353, 481, 300)[None])
+    heads = mobilenet_v1.forward(params, normalize(photo, torch.float32),
+                                 ModelConfig(model_id=50, output_stride=16))
+    cases.append(('fixture m50 s16 heads, 23x31', [heads[k][0].numpy() for k in HEAD_ORDER], 16))
+    cases.append(('nothing above the threshold, 33x33',
+                  [np.full((33, 33, 17), 0.1, np.float32)]
+                  + [rng.uniform(-8, 8, (33, 33, c)).astype(np.float32) for c in (34, 32, 32)],
+                  16))
+    launches = 0
+    for name, hwc, stride in cases:
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in hwc]
+        card = [t.to(dev) for t in host]
+        ref = decode_single_pose(*host, stride)
+        torch.cuda.synchronize()
+        traversal.launches = 0
+        got = decode_single_pose(*card, stride)
+        torch.cuda.synchronize()
+        check(traversal.launches == 1, f'single pose, {name}: K1 launched '
+                                       f'{traversal.launches} times in one call')
+        launches += traversal.launches
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)),
+              f'single pose, {name}: the card differs from the CPU')
+        filled = int((ref[0] > 0).sum())
+        check(filled == 0 if name.startswith('nothing') else filled >= 9,
+              f'single pose, {name}: {filled} keypoints filled')
+        print(f'single pose, {name}: card (K1, one launch) bitwise equal to the CPU (plain '
+              f'version): root keypoint {int(ref[2])}, {filled} keypoints filled',
+              flush=True)
+
+    # K1 at the single pose's shape: the wrapper's arguments as the path
+    # makes them, recorded on the 33x33 case.
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in cases[0][1]]
+    card = [t.to(dev) for t in host]
+    _, args = recorded_k1_args(decode_single_pose, *card, 16)
+    equal, err, _, _ = k1_against_plain(args, 33, 33, 16)
+    check(equal, f'K1 at B = K = 1 differs from its plain version (max {err})')
+    fetches = k1_fetches(args, 33, 33, 16)
+
+    def kernel():
+        return traversal.traverse_all_candidates(*args, 33, 33, 16)
+
+    def plain():
+        return traversal.traverse_all_candidates_reference(*args, 33, 33, 16)
+
+    def whole():
+        return decode_single_pose(*card, 16)
+
+    runs = {}
+    for name, timer in (('plain', lambda: cuda_ms(plain, 20)),
+                        ('call', lambda: cuda_ms(kernel, 50)),
+                        ('kernel', lambda: graph_ms(kernel)),
+                        ('decode', lambda: cuda_ms(whole, 20)),
+                        ('decode', lambda: cuda_ms(whole, 20)),
+                        ('kernel', lambda: graph_ms(kernel)),
+                        ('call', lambda: cuda_ms(kernel, 50)),
+                        ('plain', lambda: cuda_ms(plain, 20))):
+        runs.setdefault(name, []).append(timer())
+    ms = {name: sum(v) / len(v) for name, v in runs.items()}
+    t0 = time.perf_counter()
+    for _ in range(20):
+        decode_single_pose(*host, 16)
+    cpu_ms = (time.perf_counter() - t0) * 1000 / 20
+    bound = k1_bound_ms(1, 1, fetches)
+    print(f'single pose 33x33 s16: decode_single_pose {ms["decode"]:.4f} ms a call on the card '
+          f'(CUDA events, host dispatch included), {cpu_ms:.4f} ms on the CPU (host clock); '
+          f'its K1 launch (B = K = 1, {fetches} fetching hops): {ms["kernel"]:.4f} ms (CUDA '
+          f'graph, the device alone), {ms["call"]:.4f} ms a call, plain {ms["plain"]:.4f} ms, '
+          f'bound {bound:.3g} ms (bytes), bitwise equal (runs plain, call, kernel, decode, '
+          f'decode, kernel, call, plain: {runs})', flush=True)
+    return ({'ms': ms['kernel'], 'call_ms': ms['call'], 'plain_ms': ms['plain'],
+             'bound_ms': bound, 'floor_ms': ms['kernel'], 'err': err}, launches)
+
+
+def per_frame_decode(dev, frame):
+    """Phase 8 (2): the per-frame apps' decode at their grids. The m101 s16
+    float32 heads of one 720x1280 frame at scale 1.0 (image_demo and
+    benchmark: 721x1281, 46x81 cells) and 0.7125 (webcam_demo: 513x913,
+    33x58), decoded as `decode_multiple_poses` decodes them (`decode_batch`
+    at B = 1, each app's min_pose_score) on the card and on the CPU:
+    keypoints bitwise, pose scores within 2 ulp; and K1 on the card's
+    recorded arguments against its plain version, bitwise."""
+    model = load_model(101, 16, allow_random_init=True, device=dev)
+    for scale, min_pose_score, apps in ((1.0, 0.25, 'image_demo, benchmark'),
+                                        (0.7125, 0.15, 'webcam_demo')):
+        x, _, _ = process_input(frame, scale, 16)
+        heads = [t.permute(0, 2, 3, 1).contiguous() for t in model(x)]
+        h, w = heads[0].shape[1:3]
+        cfg = DecodeConfig(max_pose_detections=10, min_pose_score=min_pose_score)
+        got, args = recorded_k1_args(decode_batch, *heads, 16, cfg)
+        ref = decode_batch(*[t.cpu() for t in heads], 16, cfg)
+        assert_poses_equal(got, ref, f'per-frame decode at {h}x{w} ({apps})')
+        equal, err, filled, _ = k1_against_plain(args, h, w, 16)
+        check(equal and filled > 17, f'K1 at {h}x{w} ({apps}): bitwise {equal} (max {err}), '
+                                     f'{filled} keypoints filled')
+        print(f'per-frame decode at {h}x{w} ({apps}; m101 s16 f32 heads of a 720x1280 frame at '
+              f'scale {scale}): the card bitwise equal to the CPU, '
+              f'{int((ref.pose_scores > 0).sum())} poses of {int(ref.candidate_count[0])} '
+              f'candidates; K1 on its recorded arguments bitwise equal to its plain version, '
+              f'{filled} keypoints filled', flush=True)
+
+
+def webcam_steps(bgr, smi, n=24):
+    """Where webcam_demo's time goes, from its own loop: its `main` on a
+    stand-in capture of n warm 720x1280 frames (-> 513x913), with
+    `StageTimer` stages around the helpers it calls: `read_cap` (the read,
+    the host resize and normalize), the model's call (the upload and the
+    forward, the device synchronised after it so that the stage holds the
+    forward's device time), `decode_multiple_poses` (the decode and the
+    read-back) and `draw_skel_and_kp`."""
+    import cv2
+
+    import posenet_tpu_torch as posenet
+    from posenet_tpu_torch.apps import webcam_demo
+
+    timer = StageTimer()
+
+    def timed(name, fn, sync=False):
+        def call(*a, **k):
+            with timer.stage(name):
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+            return out
+        return call
+
+    def load_timed(*a, **k):
+        model = load(*a, **k)
+        model.forward = timed('upload + forward', model.forward, sync=True)
+        return model
+
+    load = posenet.load_model
+    helpers = {'load_model': load_timed,
+               'read_cap': timed('read + resize', posenet.read_cap),
+               'decode_multiple_poses': timed('decode + read', posenet.decode_multiple_poses),
+               'draw_skel_and_kp': timed('draw', posenet.draw_skel_and_kp)}
+    saved = {name: getattr(posenet, name) for name in helpers}
+    capture = cv2.VideoCapture
+    cv2.VideoCapture = lambda _id: FakeCapture([bgr[i % len(bgr)].copy() for i in range(n)])
+    try:
+        for name, fn in helpers.items():
+            setattr(posenet, name, fn)
+        out, launches, _ = run_app(webcam_demo, ['--no_display', '--allow_random_init'])
+    finally:
+        cv2.VideoCapture = capture
+        for name, fn in saved.items():
+            setattr(posenet, name, fn)
+    check(launches == n, f'webcam_demo (timed) launched K1 {launches} times for {n} frames')
+    total = sum(timer.totals.values()) * 1000 / n
+    print(f'apps: webcam_demo\'s own loop under StageTimer, m101 s16 f32, {n} warm frames '
+          f'720x1280 -> 513x913 ({smi}): {total:.3f} ms a frame in its helpers, '
+          f'{printed_fps(out):.2f} FPS printed (with the sync after each forward); '
+          f'K1 launches {launches}\n{timer.report()}', flush=True)
+
+
+def apps_phase(dev, smi) -> dict:
+    """Phase 8 (2, 3): the apps, where cv2 imports. Returns K1's launches by
+    app."""
+    if importlib.util.find_spec('cv2') is None:
+        print('apps: cv2 does not import here, and every app needs it: phase 8 ran the '
+              'single pose only', flush=True)
+        return {}
+    import cv2
+
+    from posenet_tpu_torch.apps import benchmark, image_demo, video_demo, webcam_demo
+
+    launches = {}
+    bgr = [np.ascontiguousarray(synth_photo(720, 1280, 400 + i)[..., ::-1]) for i in range(4)]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)   # ./_models here holds no m101 checkpoint: random weights
+        try:
+            os.makedirs('images')
+            for i, frame in enumerate(bgr):
+                cv2.imwrite(os.path.join('images', f'photo{i}.jpg'), frame)
+
+            # The first run at a shape pays cuDNN's start-up there; the
+            # second, in the same process, is what a user sees after it.
+            for when in ('cold', 'warm'):
+                out, n, secs = run_app(image_demo, ['--image_dir', 'images', '--output_dir',
+                                                    'overlays', '--allow_random_init'])
+                shapes = [cv2.imread(os.path.join('overlays', f)).shape
+                          for f in sorted(os.listdir('overlays'))]
+                check(shapes == [(720, 1280, 3)] * 4, f'image_demo overlays {shapes}')
+                check(n == 4, f'image_demo launched K1 {n} times for 4 images')
+                launches[f'image_demo {when}'] = n
+                print(f'apps: image_demo {when}, m101 s16 f32, 4 images 720x1280 -> 721x1281: '
+                      f'{printed_fps(out):.2f} FPS (its Average FPS line; {smi}); 4 overlays '
+                      f'at 720x1280; K1 launches {n}; {out.count("Pose #")} poses printed; '
+                      f'{secs:.2f} s in main', flush=True)
+
+            for extra, label in (([], 'per-frame'), (['--profile', 'trace_frame'],
+                                                     'per-frame --profile')):
+                out, n, secs = run_app(benchmark, ['--image_dir', 'images', '--num_images',
+                                                   '20', '--allow_random_init', *extra])
+                check(n == 20, f'benchmark {label} launched K1 {n} times for 20 frames')
+                launches[f'benchmark {label}'] = n
+                report = out.split('Average FPS:', 1)[1].split('\n', 1)[1].rstrip()
+                print(f'apps: benchmark {label}, m101 s16 f32, 20 frames at 721x1281: '
+                      f'{printed_fps(out):.2f} FPS ({smi}); K1 launches {n}'
+                      + (f'; its stage breakdown (device synchronised after each forward):\n'
+                         f'{report}' if extra else ''), flush=True)
+
+            out, n, secs = run_app(benchmark, ['--image_dir', 'images', '--batch_size', '128',
+                                               '--image_size', '513', '--allow_random_init',
+                                               '--profile', 'trace_batch'])
+            batches = 1000 // 128
+            check(n == batches + 2, f'benchmark b128 launched K1 {n} times (warm-up, traced '
+                                    f'batch and {batches} timed batches)')
+            launches['benchmark b128'] = n
+            report = out.split('Average FPS:', 1)[0].strip().splitlines()
+            report = report[:12] + report[12:][-1:]   # the largest, and the total
+            print(f'apps: benchmark --batch_size 128 --image_size 513, m101 s16 f32: '
+                  f'{printed_fps(out):.1f} FPS ({smi}); K1 launches {n} (warm-up, the traced '
+                  f'batch, {batches} timed); device time of the traced batch by kernel '
+                  f'(torch.profiler):\n' + '\n'.join(report), flush=True)
+
+            capture = cv2.VideoCapture
+            for when, frames in (('cold', 8), ('warm', 24)):
+                cv2.VideoCapture = lambda _id: FakeCapture(
+                    [bgr[i % len(bgr)].copy() for i in range(frames)])
+                try:
+                    out, n, secs = run_app(webcam_demo, ['--no_display', '--max_frames',
+                                                         str(frames), '--allow_random_init'])
+                finally:
+                    cv2.VideoCapture = capture
+                check(n == frames, f'webcam_demo {when} launched K1 {n} times for {frames} '
+                                   f'frames')
+                launches[f'webcam_demo {when}'] = n
+                print(f'apps: webcam_demo {when} --no_display, m101 s16 f32, a stand-in capture '
+                      f'of {frames} frames 720x1280 -> 513x913: {printed_fps(out):.2f} FPS '
+                      f'({smi}); K1 launches {n}', flush=True)
+            webcam_steps(bgr, smi)
+
+            writer = cv2.VideoWriter('in.mp4', cv2.VideoWriter_fourcc(*'mp4v'), 30, (1280, 720))
+            check(writer.isOpened(), 'cv2 cannot write an mp4v video here')
+            for i in range(40):
+                writer.write(bgr[i % 4])
+            writer.release()
+            for extra, label in (([], 'host resize'), (['--device_preprocess'],
+                                                       '--device_preprocess')):
+                out, n, secs = run_app(video_demo, [
+                    '--video', 'in.mp4', '--resize', '513x513', '--batch_size', '16',
+                    '--poses_out', 'poses.jsonl', '--allow_random_init', *extra])
+                frames = [json.loads(line)['frame'] for line in open('poses.jsonl')]
+                check(frames == list(range(40)), f'video_demo {label}: JSONL frames {frames}')
+                check(n == 3, f'video_demo {label} launched K1 {n} times for 3 batches')
+                launches[f'video_demo {label}'] = n
+                print(f'apps: video_demo {label}, m101 s16 f32, 40 frames 720x1280 -> 513x513, '
+                      f'batch 16, depth 2: {printed_fps(out):.1f} FPS (the first batch\'s '
+                      f'start-up included; {smi}); one JSONL record a frame, in order; K1 '
+                      f'launches {n}', flush=True)
+
+            per_frame_decode(dev, bgr[0])
+            launches['video_demo fixture'] = fixture_parity()
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def fixture_parity() -> int:
+    """Phase 8 (3): video_demo --poses_out with the fixture m50 s16 weights
+    (./_models), on the card and with --device cpu: equal pose counts,
+    coordinates within 1e-3 px. Returns the card run's K1 launches."""
+    import cv2
+
+    from posenet_tpu_torch.apps import video_demo
+
+    os.makedirs('_models')
+    shutil.copy(FIXTURE, os.path.join('_models', 'mobilenet_v1_050.npz'))
+    writer = cv2.VideoWriter('fixture.mp4', cv2.VideoWriter_fourcc(*'mp4v'), 10, (481, 353))
+    for i in range(6):
+        writer.write(np.ascontiguousarray(synth_photo(353, 481, 500 + i % 3)[..., ::-1]))
+    writer.release()
+    argv = ['--video', 'fixture.mp4', '--model', '50', '--resize', '353x481',
+            '--batch_size', '4']
+    _, n, _ = run_app(video_demo, argv + ['--poses_out', 'card.jsonl'])
+    run_app(video_demo, argv + ['--poses_out', 'cpu.jsonl', '--device', 'cpu'])
+    check(n == 2, f'video_demo (fixture) launched K1 {n} times for 2 batches')
+    card, cpu = ([json.loads(line) for line in open(f)] for f in ('card.jsonl', 'cpu.jsonl'))
+    check(len(card) == len(cpu) == 6, f'fixture video: {len(card)} and {len(cpu)} records')
+    counts = [len(r['poses']) for r in cpu]
+    check([len(r['poses']) for r in card] == counts and sum(counts) >= 6,
+          f'fixture video: pose counts {[len(r["poses"]) for r in card]} on the card, '
+          f'{counts} on the CPU')
+    coord_err = score_err = 0.0
+    for a, b in zip(card, cpu):
+        for pa, pb in zip(a['poses'], b['poses']):
+            score_err = max(score_err, abs(pa['score'] - pb['score']))
+            for ka, kb in zip(pa['keypoints'], pb['keypoints']):
+                coord_err = max(coord_err, abs(ka['y'] - kb['y']), abs(ka['x'] - kb['x']))
+    check(coord_err <= 1e-3 and score_err <= 1e-4,
+          f'fixture video, card vs CPU: coords {coord_err} px, pose scores {score_err}')
+    print(f'apps: video_demo --poses_out, fixture m50 s16, 6 frames 353x481, card vs '
+          f'--device cpu (TF32 off): pose counts {counts} equal, coordinates within '
+          f'{coord_err:.3g} px (limit 1e-3), pose scores within {score_err:.3g}; K1 launches '
+          f'{n}', flush=True)
+    return n
+
+
+def phase8(dev, smi):
+    """Phase 8: the single pose, then the apps; returns (K1's timing at the
+    single pose's shape, K1's launches by path)."""
+    timing, single = single_pose_phase(dev)
+    return timing, {'single pose': single, **apps_phase(dev, smi)}
+
+def full_run(dev, smi) -> list:
+    """Phases 3-8; returns the kernels' entries."""
     max_err = k1_checks(dev)
     k2_err = k2_checks(dev)
 
@@ -910,14 +1312,13 @@ def full_run(dev) -> list:
     print(f'f32 heads, fixture m50 s16, 3x353x481: CUDA vs CPU within {worst:.3g} '
           f'of each head\'s scale (limit 1e-4)', flush=True)
     dcfg = DecodeConfig(min_pose_score=0.25)
-    order = ('heatmap', 'offset', 'displacement_fwd', 'displacement_bwd')
-    cpu_heads = [heads['cpu'][k] for k in order]
+    cpu_heads = [heads['cpu'][k] for k in HEAD_ORDER]
     ref = decode_batch(*cpu_heads, 16, dcfg)
     got = decode_batch(*[t.to(dev) for t in cpu_heads], 16, dcfg)
     assert_poses_equal(got, ref, 'decode_batch CUDA (K1) vs CPU (plain)')
     n_ref = (ref.pose_scores > 0).sum(1)
     check(bool((n_ref >= 1).all()), f'fixture decode found no pose: {n_ref.tolist()}')
-    slice_gpu = decode_batch(*[heads['cuda'][k] for k in order], 16, dcfg)
+    slice_gpu = decode_batch(*[heads['cuda'][k] for k in HEAD_ORDER], 16, dcfg)
     check(torch.equal((slice_gpu.pose_scores > 0).sum(1).cpu(), n_ref),
           'slice on CUDA finds another pose count than on the CPU')
     coord_err = float((slice_gpu.keypoint_coords.cpu() - ref.keypoint_coords).abs().max())
@@ -1071,18 +1472,25 @@ def full_run(dev) -> list:
     k2_time = k2_timing(dev, batch)
 
     k1_time = k1_timing(dev, peaked, pipe.decode_cfg)
-    return [k1_entry(launches, max_err, k1_time), k2_entry(k2_launches, k2_err, k2_time)]
+    del peaked, frames8, bgr16, peaked8
+
+    # 8. the single pose and the apps (float32, as the JAX apps run)
+    single_time, app_launches = phase8(dev, smi)
+    k1 = k1_entry(launches, max(max_err, single_time['err']), k1_time)
+    k1['launches_by_path'] = {'main path (phase 5)': launches, **app_launches}
+    return [k1, k2_entry(k2_launches, k2_err, k2_time)]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=('k1', 'k2'),
-                        help='the device and build phases, then K1 or K2 alone')
+    parser.add_argument('--only', choices=('k1', 'k2', 'apps'),
+                        help='the device and build phases, then K1 or K2 alone, or '
+                             'phase 8 (the single pose and the apps)')
     only = parser.parse_args(argv).only
     found = device_phase()
     if found is None:
         return 1
-    kind, dev = found
+    kind, dev, smi = found
     build_phase()
     if only == 'k1':
         traversal.launches = 0
@@ -1098,8 +1506,15 @@ def main(argv=None) -> int:
         # No main path runs here: `launches` is the trunk check's (2x65x65).
         kernels = [dict(k2_entry(k2_launches, k2_err, k2_timing(dev)),
                         launches_from='bf16 trunk check at 2x65x65, not the main path')]
+    elif only == 'apps':
+        timing, app_launches = phase8(dev, smi)
+        # No main path runs here: `launches` is the single pose's (phase 8),
+        # and the timing is K1's at its B = K = 1 shape.
+        kernels = [dict(k1_entry(app_launches['single pose'], timing['err'], timing),
+                        launches_from='the single-pose calls of phase 8, not the main path',
+                        launches_by_path=app_launches)]
     else:
-        kernels = full_run(dev)
+        kernels = full_run(dev, smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -8,9 +8,13 @@ equal to. It imports torch and never jax.
 from posenet_tpu_torch.constants import *  # noqa: F401,F403
 from posenet_tpu_torch import constants, decode, decode_multi  # noqa: F401
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig  # noqa: F401
-from posenet_tpu_torch.decode import DecodedPoses, decode_batch  # noqa: F401
+from posenet_tpu_torch.decode import (DecodedPoses, decode_batch,  # noqa: F401
+                                      build_part_with_score_single_pose,
+                                      decode_pose, decode_single_pose, find_root)
 from posenet_tpu_torch.decode_multi import (decode_multiple_poses,  # noqa: F401
                                             decode_multiple_poses_batch)
+from posenet_tpu_torch.draw import (draw_keypoints, draw_skel_and_kp,  # noqa: F401
+                                    draw_skeleton, get_adjacent_keypoints)
 from posenet_tpu_torch.models.model_factory import (MobileNetV1, PoseNet,  # noqa: F401
                                                     load_model)
 from posenet_tpu_torch.models.mobilenet_v1 import MOBILENET_V1_CHECKPOINTS  # noqa: F401
@@ -24,5 +28,8 @@ from posenet_tpu_torch.server import LivePipelineBackend, PoseServer  # noqa: F4
 from posenet_tpu_torch.serving import (ServingArtifact,  # noqa: F401
                                        load_serving_artifact,
                                        save_serving_artifact)
+
+# The reference exposes its preprocessor as `_process_input`; keep the alias.
+_process_input = process_input
 
 __version__ = "0.1.0"

@@ -11,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
-    "PART_NAMES", "NUM_KEYPOINTS", "PART_IDS", "LOCAL_MAXIMUM_RADIUS",
-    "POSE_CHAIN", "PARENT_CHILD_TUPLES", "NUM_EDGES", "EDGES",
+    "PART_NAMES", "NUM_KEYPOINTS", "PART_IDS", "CONNECTED_PART_NAMES",
+    "CONNECTED_PART_INDICES", "LOCAL_MAXIMUM_RADIUS", "POSE_CHAIN",
+    "PARENT_CHILD_TUPLES", "NUM_EDGES", "EDGES",
 ]
 
 PART_NAMES = [
@@ -24,6 +25,21 @@ PART_NAMES = [
 NUM_KEYPOINTS = len(PART_NAMES)  # 17
 
 PART_IDS = {pn: pid for pid, pn in enumerate(PART_NAMES)}
+
+# Pairs of keypoints drawn as skeleton line segments, in the order the
+# overlays draw them.
+CONNECTED_PART_NAMES = [
+    ("leftHip", "leftShoulder"), ("leftElbow", "leftShoulder"),
+    ("leftElbow", "leftWrist"), ("leftHip", "leftKnee"),
+    ("leftKnee", "leftAnkle"), ("rightHip", "rightShoulder"),
+    ("rightElbow", "rightShoulder"), ("rightElbow", "rightWrist"),
+    ("rightHip", "rightKnee"), ("rightKnee", "rightAnkle"),
+    ("leftShoulder", "rightShoulder"), ("leftHip", "rightHip"),
+]
+
+CONNECTED_PART_INDICES = [
+    (PART_IDS[a], PART_IDS[b]) for a, b in CONNECTED_PART_NAMES
+]
 
 # Radius (in output-grid cells) of the local-maximum window used for part
 # NMS. Window size is 2*r+1.

@@ -11,6 +11,10 @@ The counterpart of `posenet_tpu.decode`, batched over images throughout:
 
 Every stage is static-shape, so a call queues device work and returns;
 nothing waits for the device until the caller reads a result.
+
+The single-pose decode (`decode_single_pose`, `decode_pose`) grows one
+pose from the best keypoint: the same tree walk for one candidate of one
+image, one kernel launch on the card.
 """
 
 from __future__ import annotations
@@ -180,3 +184,101 @@ def decode_batch(heatmap, offsets, dfwd, dbwd, output_stride: int,
     return _greedy_accept(cand_scores, cand_kp, root_coords, all_scores,
                           all_coords, all_offsets, cfg)._replace(
                               candidate_count=n_cand)
+
+
+# ---------------------------------------------------------------------------
+# Single-pose decoding
+# ---------------------------------------------------------------------------
+
+def split_yx(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """(H, W, 2n) channel-packed field [all-y || all-x] -> (H, W, n, 2),
+    y-component first."""
+    return torch.stack([packed[..., :n], packed[..., n:2 * n]], dim=-1)
+
+
+def _rows(field_yx: torch.Tensor) -> torch.Tensor:
+    """(H, W, n, 2) -> the (1, H*W, 2n) [y || x] rows the tree walk reads."""
+    h, w, n, _ = field_yx.shape
+    return torch.cat([field_yx[..., 0].reshape(h * w, n),
+                      field_yx[..., 1].reshape(h * w, n)], dim=1)[None]
+
+
+def _walk_one(root_score, root_id, root_image_coord, scores_map, offsets, dfwd, dbwd,
+              output_stride: int):
+    """The tree walk of one root over (1, H*W, C) [y || x] rows with unit
+    column stride (the scores (H, W, 17)): one launch of the walk's kernel
+    on the card. Returns (keypoint_scores (17,), keypoint_coords (17, 2),
+    offsets (17, 2))."""
+    h, w, _ = scores_map.shape
+    device = scores_map.device
+    scores = scores_map.reshape(1, h * w, NUM_KEYPOINTS)
+    cand_score = torch.as_tensor(root_score, dtype=torch.float32, device=device).reshape(1, 1)
+    cand_kp = torch.as_tensor(root_id, dtype=torch.int32, device=device).reshape(1, 1)
+    root = torch.as_tensor(root_image_coord, dtype=torch.float32, device=device).reshape(1, 1, 2)
+    kp_scores, kp_coords, kp_offsets = traverse_all_candidates(
+        cand_score, cand_kp, root, scores, offsets, dfwd, dbwd, h, w, output_stride)
+    return kp_scores[0, 0], kp_coords[0, 0], kp_offsets[0, 0]
+
+
+def decode_pose(root_score, root_id, root_image_coord, scores_map, offsets_yx,
+                dfwd_yx, dbwd_yx, output_stride: int):
+    """Grow a full 17-keypoint pose from one root: `scores_map` (H, W, 17),
+    the stacked (H, W, n, 2) fields that `split_yx` makes, the root's score,
+    keypoint id and (y, x) image coordinate (tensors or numbers).
+
+    One tree walk for one candidate of one image: on the card, one launch
+    of the walk's kernel. Returns (keypoint_scores (17,), keypoint_coords
+    (17, 2), offsets (17, 2)) on the maps' device."""
+    return _walk_one(root_score, root_id, root_image_coord, scores_map, _rows(offsets_yx),
+                     _rows(dfwd_yx), _rows(dbwd_yx), output_stride)
+
+
+def decode_single_pose(heatmap: torch.Tensor, offsets: torch.Tensor,
+                       dfwd: torch.Tensor, dbwd: torch.Tensor, output_stride: int,
+                       score_threshold: float = 0.5
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-person decode of one image's HWC heads: (H, W, 17) scores,
+    (H, W, 34) offsets and (H, W, 32) displacements, [y || x] packed.
+
+    Per keypoint the best local maximum at or above `score_threshold`; the
+    root is the keypoint with the best of those; one pose grows from it.
+    The root is refined by its offset, as the multi-pose decode's roots
+    are (the reference's single-pose decode takes the bare cell).
+
+    Returns (keypoint_scores (17,), keypoint_coords (17, 2), root_id)."""
+    best_scores, best_cells = build_part_with_score_single_pose(
+        score_threshold, LOCAL_MAXIMUM_RADIUS, heatmap)
+    root_score, root_id, root_cell = find_root(best_scores, best_cells)
+    root_offset = offsets[root_cell[0], root_cell[1]][
+        torch.stack([root_id, root_id + NUM_KEYPOINTS])]
+    root_coord = root_cell.float() * output_stride + root_offset
+    h, w, _ = heatmap.shape
+    # The packed heads are already the walk's rows: views where their
+    # channels are adjacent in memory.
+    kp_scores, kp_coords, _ = _walk_one(
+        root_score, root_id, root_coord, heatmap,
+        *(t.reshape(1, h * w, t.shape[-1]) for t in (offsets, dfwd, dbwd)), output_stride)
+    return kp_scores, kp_coords, root_id
+
+
+def build_part_with_score_single_pose(score_threshold, local_max_radius,
+                                      heatmap: torch.Tensor):
+    """Per keypoint, the best local maximum of the (H, W, 17) heatmap at or
+    above the threshold: a masked argmax per channel (the first cell in
+    row-major order on ties; a channel with none gives score 0 at cell 0).
+
+    Returns (highest_scores (17,), highest_score_indices (17, 2) y-x cells)."""
+    h, w, _ = heatmap.shape
+    planes = heatmap.permute(2, 0, 1)[None]                      # (1,17,H,W)
+    mask = local_max_mask(planes, score_threshold, local_max_radius)
+    flat = torch.where(mask, planes, 0.0).reshape(NUM_KEYPOINTS, h * w)
+    best_idx = flat.argmax(dim=1)
+    best_scores = flat.gather(1, best_idx[:, None])[:, 0]
+    return best_scores, torch.stack([best_idx // w, best_idx % w], dim=-1)
+
+
+def find_root(highest_scores, highest_score_indices):
+    """The root: the keypoint with the best score. Returns (root_score,
+    root_id, root_cell (2,))."""
+    root_id = highest_scores.argmax()
+    return highest_scores[root_id], root_id, highest_score_indices[root_id]

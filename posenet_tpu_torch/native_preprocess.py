@@ -32,6 +32,8 @@ SOURCE = Path(__file__).resolve().parent.parent / 'native' / 'preprocess.cpp'
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _lib: Optional[ctypes.CDLL] = None
+# Why the library could not be built, once `native_available()` said so.
+build_error: Optional[str] = None
 
 
 def _load() -> ctypes.CDLL:
@@ -57,6 +59,19 @@ def _load() -> ctypes.CDLL:
         lib.posenet_resize_normalize.restype = None
         _lib = lib
     return _lib
+
+
+def native_available() -> bool:
+    """Whether the native library is built and loaded, building it at the
+    first call; when it is not, `build_error` says why."""
+    global build_error
+    try:
+        _load()
+    except (RuntimeError, OSError) as e:   # no source or compiler, a failed build or load
+        build_error = str(e)
+        return False
+    build_error = None
+    return True
 
 
 def _frame(img: np.ndarray) -> np.ndarray:

@@ -128,6 +128,8 @@ def test_constants_match_jax():
     assert constants.PARENT_CHILD_TUPLES == jax_constants.PARENT_CHILD_TUPLES
     assert constants.PART_IDS == jax_constants.PART_IDS
     assert constants.POSE_CHAIN == jax_constants.POSE_CHAIN
+    assert constants.CONNECTED_PART_NAMES == jax_constants.CONNECTED_PART_NAMES
+    assert constants.CONNECTED_PART_INDICES == jax_constants.CONNECTED_PART_INDICES
 
 
 def test_tree_levels_and_hop_table_match_jax():

@@ -141,7 +141,11 @@ def test_port_never_imports_jax():
             "posenet_tpu_torch.ops.traversal, posenet_tpu_torch.ops.sepconv, "
             "posenet_tpu_torch.preprocess, posenet_tpu_torch.pipeline, "
             "posenet_tpu_torch.server, posenet_tpu_torch.serving, "
-            "posenet_tpu_torch.native_preprocess; "
+            "posenet_tpu_torch.native_preprocess, posenet_tpu_torch.draw, "
+            "posenet_tpu_torch.utils, posenet_tpu_torch.visualizers, "
+            "posenet_tpu_torch.profiling, posenet_tpu_torch.apps.image_demo, "
+            "posenet_tpu_torch.apps.benchmark, posenet_tpu_torch.apps.webcam_demo, "
+            "posenet_tpu_torch.apps.video_demo, posenet_tpu_torch.apps.streamlit_demo; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, '-c', code], cwd=REPO_ROOT, check=True,
