@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only k1   # device, build, K1's checks and timing
     python3 chip_smoke.py --only k2   # device, build, K2's checks and timing
     python3 chip_smoke.py --only apps # device, build, phase 8
+    python3 chip_smoke.py --only train # device, build, phase 9
 
 Phases, each printing its own line; any failure exits nonzero and prints
 no result:
@@ -96,14 +97,43 @@ no result:
    (3) video_demo --poses_out with the fixture m50 s16 weights (./_models)
    on the card against --device cpu: equal pose counts, coordinates within
    1e-3 px.
-Then one JSON line describing the kernels (K1's with its launches on each
-path of phases 5 and 8), and as the last line
+9. heads-only fine-tuning, m101 s16 at 513x513 (published widths and
+   depth, seeded random weights), on 16 synthesized photos with Dataloop
+   annotations of their two figures, prepared by the port's
+   `prepare_ground_truth_data` (needs cv2). (1) One float32 step at b2
+   (TF32 off) on the card against the same step on the CPU: the loss
+   within 1e-5 relative, each head tensor's gradient within 1e-4 of its
+   max |grad| (the displacement heads, which the loss does not read,
+   exactly 0), no K2 launch. (2) The same in bf16, K2 on the card against
+   its plain version on the CPU: the heads of the forward within 2e-3,
+   the loss gap and the gradient gap printed, 9 K2 launches. (3) `train()`
+   on the card, float32 (with visual dumps) and bf16, b16, 2 epochs, lr
+   1e-4, eval with pose metrics on the same 16 images: finite losses, the
+   trunk bitwise unchanged, the heads moved, the eval loss lower after
+   than before and the second epoch's train loss (the same 16 images)
+   below the first's, the latest checkpoint restored bitwise with its Adam
+   moments; K2 launched 9 times for each bf16 forward (a step, an eval
+   loss, an eval decode an epoch), none in float32; K1 once for each eval
+   batch and visual dump. (4) `posenet-export-torch --from_checkpoint` of
+   the bf16 run's checkpoint to a `cuda` artifact, bitwise equal to
+   PoseNetPipeline over the restored params. (5) Timing, beside the card's
+   `name, power.limit`, at b16 and b2, float32 and bf16: the median of 15
+   warm steps by CUDA events, in img/s, and the host clock over 15; the
+   split of a step into forward, loss + backward and Adam (CUDA events at
+   their edges, median of 10); the host's staging of the batch alone; the
+   device's busy share of 5 steps (`profiling.device_time_report` over a
+   `profiling.trace`, against the host clock); the peak memory of a step
+   (`torch.cuda.max_memory_allocated`); an eval batch's loss, and its
+   forward + decode + host scoring.
+Then one JSON line describing the kernels (K1's and K2's with their
+launches on each path of phases 5, 8 and 9), and as the last line
 {"ok": true, "device": {...}}. Its times are CUDA events per call (host
 dispatch included), with one exception: K1's `ms` is CUDA graph replay,
 the device alone, because its per-call time is the host's; K1's
 `call_ms` is the per-call time, the method of its `plain_ms` (the plain
 version cannot be captured in a graph: it copies its stride to the
-card) and of K1's `ms` before the graph timing. `--only k1` runs phases 1, 2, K1's part of
+card) and of K1's `ms` before the graph timing. `--only train` runs phases 1, 2
+and 9, then K1's and K2's timing of 7. `--only k1` runs phases 1, 2, K1's part of
 3 and K1's timing of 7; `--only apps` runs phases 1, 2 and 8, its K1
 entry timed at the single pose's shape; `--only k2` runs phases 1, 2, K2's part of 3, the
 bf16 trunk check of 4 and K2's per-layer timing of 7; each then prints the
@@ -140,18 +170,24 @@ from torch.profiler import ProfilerActivity, profile
 
 from posenet_tpu_torch import (PoseNetPipeline, decode, decode_single_pose, load_model,
                                native_preprocess)
-from posenet_tpu_torch.config import DecodeConfig, ModelConfig
+from posenet_tpu_torch.config import DecodeConfig, ModelConfig, TrainConfig
 from posenet_tpu_torch.converter import weights
 from posenet_tpu_torch.decode import (_BWD_LEVELS, _FWD_LEVELS, DecodedPoses, _prepare_decode,
                                      decode_batch)
 from posenet_tpu_torch.models import mobilenet_v1
+from posenet_tpu_torch.models.model_factory import PoseNet
 from posenet_tpu_torch.ops import _build, sepconv, traversal
 from posenet_tpu_torch.pipeline import infer, infer_raw, normalize
 from posenet_tpu_torch.preprocess import preprocess_on_device, process_input
-from posenet_tpu_torch.profiling import StageTimer
+from posenet_tpu_torch.profiling import StageTimer, device_time_report, trace
 from posenet_tpu_torch.server import (LivePipelineBackend, PoseServer, _Request,
                                       make_http_server)
 from posenet_tpu_torch.serving import load_serving_artifact, save_serving_artifact
+from posenet_tpu_torch.serving import main as export_main
+from posenet_tpu_torch.training import trainer
+from posenet_tpu_torch.training import train_step as ts
+from posenet_tpu_torch.training.dataset import PosenetDataset
+from posenet_tpu_torch.training.ground_truth import prepare_ground_truth_data
 from tests.torch_k1_cases import head_views, k1_reads_heads_in_place, nose_zero_heads
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -220,6 +256,27 @@ def peaked_heads(batch, r, seed, device):
     return hm, flat[..., :34], flat[..., 34:66], flat[..., 66:98]
 
 
+def synth_figures(height, width):
+    """(centre x, centre y, scale, colour) of synth_photo's two figures."""
+    return ((width // 3, height // 2, height // 8, (150, 40, 40)),
+            (2 * width // 3, height // 2 + 20, height // 10, (40, 120, 30)))
+
+
+def figure_keypoints(height, width):
+    """Per figure of synth_photo, its drawn parts as Dataloop points
+    (label, x, y): the head's centre, the ends of the arms and legs, and
+    the shoulders and hips on the torso. The figures face the camera, so
+    their right side is on the image's left."""
+    return [[('Nose', cx, cy - 2.2 * s),
+             ('Right Shoulder', cx - 0.2 * s, cy - 1.3 * s),
+             ('Left Shoulder', cx + 0.2 * s, cy - 1.3 * s),
+             ('Right Wrist', cx - s, cy - 0.4 * s), ('Left Wrist', cx + s, cy - 0.6 * s),
+             ('Right Hip', cx - 0.15 * s, cy), ('Left Hip', cx + 0.15 * s, cy),
+             ('Right Ankle', cx - 0.6 * s, cy + 1.6 * s),
+             ('Left Ankle', cx + 0.5 * s, cy + 1.7 * s)]
+            for cx, cy, s, _ in synth_figures(height, width)]
+
+
 def synth_photo(height, width, seed):
     """A photograph-like RGB uint8 scene with two person-shaped figures, the
     geometry of tests/tfjs_fixture.synth_photo (the scenes the fixture
@@ -237,8 +294,7 @@ def synth_photo(height, width, seed):
         near = (xx - x0 - t * dx) ** 2 + (yy - y0 - t * dy) ** 2 <= (thick / 2) ** 2
         img[near] = color
 
-    for cx, cy, s, color in ((width // 3, height // 2, height // 8, (150, 40, 40)),
-                             (2 * width // 3, height // 2 + 20, height // 10, (40, 120, 30))):
+    for cx, cy, s, color in synth_figures(height, width):
         head = (xx - cx) ** 2 + (yy - (cy - 2.2 * s)) ** 2 <= (0.5 * s) ** 2
         img[head] = color
         seg((cx, cy - 1.6 * s), (cx, cy), max(2, 0.45 * s), color)
@@ -1290,6 +1346,384 @@ def phase8(dev, smi):
     timing, single = single_pose_phase(dev)
     return timing, {'single pose': single, **apps_phase(dev, smi)}
 
+
+TRAIN_PHOTO_HW = ((480, 640), (513, 513), (720, 1280), (600, 450))
+# Phase 9's model and input side: m101 s16 at 513x513, published widths and depth.
+TRAIN_MODEL, TRAIN_SIZE = 101, 513
+
+
+def train_dataset(root, n=16) -> PosenetDataset:
+    """Phase 9's data: n synthesized photos of four sizes, each with a
+    Dataloop annotation of its two figures, prepared by the port's
+    `prepare_ground_truth_data`, read at TRAIN_SIZE."""
+    import cv2
+
+    images, labels, kpdir = (os.path.join(root, d) for d in ('images', 'labels', 'keypoints'))
+    os.makedirs(images)
+    os.makedirs(labels)
+    for i in range(n):
+        h, w = TRAIN_PHOTO_HW[i % len(TRAIN_PHOTO_HW)]
+        cv2.imwrite(os.path.join(images, f'photo{i:02d}.jpg'),
+                    np.ascontiguousarray(synth_photo(h, w, 900 + i)[..., ::-1]))
+        annotations = []
+        for p, points in enumerate(figure_keypoints(h, w)):
+            annotations.append({'type': 'pose', 'id': f'p{p}'})
+            annotations += [{'type': 'point', 'label': label,
+                             'metadata': {'system': {'parentId': f'p{p}'}},
+                             'coordinates': {'x': float(x), 'y': float(y)}}
+                            for label, x, y in points]
+        with open(os.path.join(labels, f'photo{i:02d}.json'), 'w') as f:
+            json.dump({'metadata': {'system': {'height': h, 'width': w}},
+                       'annotations': annotations}, f)
+    stems = prepare_ground_truth_data(images, labels, keypoints_updated_dir=kpdir)
+    check(len(stems) == n, f'prepare_ground_truth_data prepared {len(stems)} of {n} images')
+    ds = PosenetDataset(images, kpdir, image_size=TRAIN_SIZE, output_stride=16)
+    poses = (~np.all(ds.keypoints == -1, axis=(2, 3))).sum(1)
+    check(len(ds) == n and bool((poses == 2).all()), f'dataset: {len(ds)} images, poses {poses}')
+    return ds
+
+
+def first_batch(ds: PosenetDataset, batch_size: int):
+    """The dataset's first `batch_size` images in order, unaugmented."""
+    gen = ds.iter_batches(batch_size, shuffle=False, augment=False, prefetch=0)
+    try:
+        return next(gen)
+    finally:
+        gen.close()
+
+
+def train_init_params():
+    """Seeded random weights, float32 on the host."""
+    return mobilenet_v1.init_params(torch.Generator().manual_seed(9),
+                                    ModelConfig(model_id=TRAIN_MODEL, output_stride=16))
+
+
+def train_cfgs(dtype, **kw):
+    return (TrainConfig(model_id=TRAIN_MODEL, compute_dtype=dtype, **kw),
+            ModelConfig(model_id=TRAIN_MODEL, output_stride=16, compute_dtype=dtype))
+
+
+def k2_per_forward(mcfg) -> int:
+    """The fused block's layers in one forward of `mcfg` (9 for m101 s16 bf16)."""
+    return sum(mobilenet_v1.uses_sepconv(layer, mcfg)
+               for layer in mobilenet_v1.stride_plan(mcfg.model_id, mcfg.output_stride))
+
+
+def train_step_parity(dev, ds) -> dict:
+    """Phase 9 (1, 2): one step at b2 on the card against the same step on
+    the CPU, float32 then bf16; returns K2's launches by dtype."""
+    batch = first_batch(ds, 2)
+    init = train_init_params()
+    launches = {}
+    for dtype, loss_tol, grad_tol in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, None, None)):
+        cfg, mcfg = train_cfgs(dtype)
+        out = {}
+        for name, d in (('cpu', torch.device('cpu')), ('cuda', dev)):
+            state = ts.init_train_state(init, cfg, d)
+            sepconv.launches = 0
+            state, m = ts.make_train_step(mcfg, cfg)(state, batch)
+            loss = float(m['loss'])
+            if name == 'cuda':
+                launches[dtype] = sepconv.launches
+            grads = {(n, k): t.grad.cpu() for n in HEAD_ORDER
+                     for k, t in state.params['heads'][n].items()}
+            with torch.no_grad():   # the forward at the step's starting params
+                run = ts.compute_params(ts.tree_map(lambda t: t.to(d), init), mcfg)
+                heads = mobilenet_v1.forward(run, torch.from_numpy(batch['image']).to(d), mcfg)
+            out[name] = loss, grads, {k: v.cpu() for k, v in heads.items()}
+        (cpu_loss, cpu_grads, cpu_heads), (loss, grads, heads) = out['cpu'], out['cuda']
+        loss_gap = abs(loss - cpu_loss) / abs(cpu_loss)
+        # The loss reads the heatmap and the offsets: the displacement heads'
+        # gradients are zero, and must stay so on the card.
+        check(all(bool((grads[k] == 0).all()) for k, g in cpu_grads.items()
+                  if not bool(g.any())), f'{dtype} step: nonzero displacement gradients')
+        grad_gap = max(float((grads[k] - g).abs().max()) / float(g.abs().max())
+                       for k, g in cpu_grads.items() if bool(g.any()))
+        head_gap = max(float((heads[k] - v).abs().max()) for k, v in cpu_heads.items())
+        check(np.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads.values()),
+              f'{dtype} step on the card: loss {loss}, non-finite gradients')
+        name = 'float32' if dtype == torch.float32 else 'bf16'
+        if dtype == torch.float32:
+            check(launches[dtype] == 0, f'a float32 step launched K2 {launches[dtype]} times')
+            check(loss_gap <= loss_tol, f'f32 step loss, card vs CPU: {loss_gap:.3g} relative '
+                                        f'(limit {loss_tol})')
+            check(grad_gap <= grad_tol, f'f32 step head gradients, card vs CPU: {grad_gap:.3g} '
+                                        f'of max |grad| (limit {grad_tol})')
+        else:
+            check(launches[dtype] == k2_per_forward(mcfg),
+                  f'a bf16 step launched K2 {launches[dtype]} times')
+            check(head_gap <= 2e-3, f'bf16 heads, K2 (card) vs plain (CPU): {head_gap} '
+                                    f'(limit 2e-3)')
+        print(f'train step m{TRAIN_MODEL} s16 {name} b2 {TRAIN_SIZE}x{TRAIN_SIZE} (TF32 off), '
+              f'card vs CPU: loss {loss:.6f} '
+              f'vs {cpu_loss:.6f} ({loss_gap:.3g} relative' +
+              (f', limit {loss_tol}' if loss_tol else '') + f'), head gradients within '
+              f'{grad_gap:.3g} of each tensor\'s max |grad|' +
+              (f' (limit {grad_tol})' if grad_tol else '') + f', forward heads within '
+              f'{head_gap:.3g}' + ('' if loss_tol else ' (limit 2e-3)') +
+              f'; K2 launches {launches[dtype]}', flush=True)
+    return launches
+
+
+def same_tensors(a, b) -> bool:
+    """Two parameter pytrees bitwise equal (on the host)."""
+    flat = [ts.tree_map(lambda t: t.detach().cpu(), p) for p in (a, b)]
+    return all(torch.equal(x, y) for la, lb in zip(*(p['backbone'] + list(p['heads'].values())
+                                                     for p in flat))
+               for x, y in ((la[k], lb[k]) for k in la))
+
+
+def train_runs(dev, ds, root) -> dict:
+    """Phase 9 (3, 4): `train()` on the card, float32 with visual dumps and
+    bf16, then the bf16 run's checkpoint exported `--from_checkpoint`.
+    Returns K1's and K2's launches by run."""
+    init = train_init_params()
+    launches = {}
+    for dtype, visual in ((torch.float32, 1), (torch.bfloat16, 0)):
+        name = 'float32' if dtype == torch.float32 else 'bf16'
+        ckpt = os.path.join(root, f'ckpt_{name}')
+        out_dir = os.path.join(root, f'visual_{name}')
+        cfg, mcfg = train_cfgs(dtype, batch_size=16, learning_rate=1e-4, num_epochs=2,
+                               checkpoint_dir=ckpt, output_dir=out_dir, visual_every=visual)
+        before = trainer.evaluate(ds, cfg, init, eval_pose_metrics=False, device=dev)
+        logger = trainer.MetricLogger(verbose=False)
+        torch.cuda.synchronize()
+        traversal.launches = sepconv.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.train(ds, ds, cfg, logger=logger, params=init, resume=False, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, k2 = traversal.launches, sepconv.launches
+        launches[name] = k1, k2
+        after = trainer.evaluate(ds, cfg, state.params, eval_pose_metrics=False, device=dev)
+        hist = logger.history
+        # a step, an eval loss and an eval decode a epoch (one batch each),
+        # and a visual dump a epoch in float32
+        want = (2 + 2 * visual, 0) if dtype == torch.float32 else (2, 2 * 3 * k2_per_forward(mcfg))
+        check((k1, k2) == want, f'train() {name} launched K1 {k1} and K2 {k2} times, not {want}')
+        check(len(hist) == 2 and all(np.isfinite(h[k]) for h in hist
+                                     for k in ('train_loss', 'test_loss', 'oks', 'mAP')),
+              f'train() {name}: history {hist}')
+        check(hist[1]['train_loss'] < hist[0]['train_loss'],
+              f'train() {name}: the train loss on the repeated batch did not fall: {hist}')
+        check(after['loss'] < before['loss'],
+              f'train() {name}: eval loss {before["loss"]} before, {after["loss"]} after')
+        trunk_same = all(torch.equal(t.cpu(), init['backbone'][i][k])
+                         for i, layer in enumerate(state.params['backbone'])
+                         for k, t in layer.items())
+        check(trunk_same, f'train() {name} changed the frozen trunk')
+        moved = max(float((t.detach().cpu() - init['heads'][n][k]).abs().max())
+                    for n in HEAD_ORDER for k, t in state.params['heads'][n].items())
+        check(moved > 0, f'train() {name} left the heads as they were')
+        restored = trainer.restore_checkpoint(ckpt, ts.init_train_state(init, cfg, dev))
+        check(restored is not None and restored.step == state.step == 2
+              and same_tensors(restored.params, state.params),
+              f'train() {name}: the latest checkpoint does not restore the final state')
+        adam = [restored.optimizer.state[t]['exp_avg'] for t in ts.trainable_tensors(
+            restored.params)]
+        check(all(torch.equal(a, state.optimizer.state[t]['exp_avg'])
+                  for a, t in zip(adam, ts.trainable_tensors(state.params))),
+              f'train() {name}: the restored Adam moments differ')
+        if visual:
+            item = os.path.join(out_dir, 'epoch_1', 'photo00')
+            check(os.path.exists(os.path.join(item, 'photo00_keypoints.jpg')),
+                  f'train() {name}: no visual dump under {item}')
+        print(f'train() m{TRAIN_MODEL} s16 {name} {TRAIN_SIZE}x{TRAIN_SIZE} b16, 16 images, '
+              f'2 epochs, lr 1e-4, eval with '
+              f'pose metrics: train loss ' + ', '.join(f'{h["train_loss"]:.6f}' for h in hist) +
+              '; test loss ' + ', '.join(f'{h["test_loss"]:.6f}' for h in hist) +
+              f'; OKS {hist[-1]["oks"]:.4f}, mAP {hist[-1]["mAP"]:.4f}; eval loss '
+              f'{before["loss"]:.6f} -> {after["loss"]:.6f}; epoch s ' +
+              ', '.join(f'{h["epoch_time_s"]:.2f}' for h in hist) + f' ({secs:.2f} s in '
+              f'train(), the first epoch\'s start-up included); trunk bitwise unchanged, heads '
+              f'moved up to {moved:.3g}; checkpoint step {restored.step} restored bitwise '
+              f'(params and Adam moments); K1 launches {k1}, K2 launches {k2}' +
+              ('; visual dumps written' if visual else ''), flush=True)
+    export_from_checkpoint(dev, os.path.join(root, 'ckpt_bf16'), root, init)
+    return launches
+
+
+def export_from_checkpoint(dev, ckpt, root, init):
+    """Phase 9 (4): `posenet-export-torch --from_checkpoint` to a `cuda`
+    artifact, bitwise equal to PoseNetPipeline over the restored params."""
+    path = os.path.join(root, 'trained.posenet')
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_main(['--model', str(TRAIN_MODEL), '--output_stride', '16', '--size',
+                     str(TRAIN_SIZE), str(TRAIN_SIZE), '--batch_sizes', '2', '--platforms',
+                     dev.type, '--compute_dtype', 'bfloat16',
+                     '--from_checkpoint', ckpt, '--output', path])
+    export_s = time.perf_counter() - t0
+    cfg, mcfg = train_cfgs(torch.bfloat16)
+    restored = trainer.restore_checkpoint(ckpt, ts.init_train_state(init, cfg, dev))
+    pipe = PoseNetPipeline(PoseNet(ts.tree_map(torch.Tensor.detach, restored.params), mcfg))
+    frames = torch.from_numpy(np.stack([synth_photo(TRAIN_SIZE, TRAIN_SIZE, 950 + i)
+                                        for i in range(2)]))
+    art = load_serving_artifact(path, device=dev)
+    got, ref = art(frames), pipe(frames.to(dev))
+    torch.cuda.synchronize()
+    for f, a, b in zip(DecodedPoses._fields, got, ref):
+        check(torch.equal(a, b), f'--from_checkpoint artifact differs from PoseNetPipeline in {f}')
+    print(f'posenet-export-torch --from_checkpoint (bf16 run, step {restored.step}) -> cuda '
+          f'artifact m{TRAIN_MODEL} s16 bf16 {TRAIN_SIZE}x{TRAIN_SIZE} b2 in {export_s:.2f} s: '
+          f'bitwise equal to '
+          f'PoseNetPipeline over the restored params; poses per image '
+          f'{(got.pose_scores > 0).sum(1).tolist()}', flush=True)
+
+
+def median_ms(events) -> float:
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def step_split(state, step, batch, n=10):
+    """Median CUDA-event times of a step's forward, loss + backward and
+    Adam, over `n` steps, and of the whole step: the forward is marked by
+    wrapping `mobilenet_v1.forward`, Adam by the optimizer's step hooks."""
+    marks = []
+
+    def mark(*_):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append(e)
+
+    forward = mobilenet_v1.forward
+
+    def marked_forward(*a, **k):
+        mark()
+        out = forward(*a, **k)
+        mark()
+        return out
+
+    hooks = [state.optimizer.register_step_pre_hook(mark),
+             state.optimizer.register_step_post_hook(mark)]
+    mobilenet_v1.forward = marked_forward
+    try:
+        for _ in range(n):
+            mark()
+            state, _ = step(state, batch)
+            mark()
+    finally:
+        mobilenet_v1.forward = forward
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    check(len(marks) == 6 * n, f'step split: {len(marks)} marks for {n} steps')
+    t = np.array([[marks[6 * i + j].elapsed_time(marks[6 * i + j + 1]) for j in range(5)]
+                  for i in range(n)])
+    # per step: [upload etc., forward, loss + backward, Adam, after Adam]
+    return {'forward': float(np.median(t[:, 1])), 'loss+backward': float(np.median(t[:, 2])),
+            'adam': float(np.median(t[:, 3])),
+            'rest': float(np.median(t[:, 0] + t[:, 4])), 'step': float(np.median(t.sum(1)))}
+
+
+def train_timing(dev, ds, smi):
+    """Phase 9 (5): steps at b16 and b2, float32 and bf16, on the card."""
+    init = train_init_params()
+    b16 = first_batch(ds, 16)
+    dcfg = DecodeConfig(min_pose_score=0.25, score_threshold=0.25)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = 'float32' if dtype == torch.float32 else 'bf16'
+        for b in (16, 2):
+            batch = {k: b16[k][:b] for k in ('image', 'keypoints')}
+            cfg, mcfg = train_cfgs(dtype, batch_size=b)
+            state = ts.init_train_state(init, cfg, dev)
+            step = ts.make_train_step(mcfg, cfg)
+            for _ in range(3):
+                state, _ = step(state, batch)
+            events = []
+            for _ in range(15):
+                pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                pair[0].record()
+                state, _ = step(state, batch)
+                pair[1].record()
+                events.append(pair)
+            ms = median_ms(events)
+            t0 = time.perf_counter()
+            for _ in range(15):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / 15 * 1e3
+            split = step_split(state, step, batch)
+            staging = []
+            for _ in range(5):   # the host's part of the upload, alone
+                t0 = time.perf_counter()
+                ts._step_batch(batch, dev)
+                staging.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tdir:
+                with trace(tdir, dev):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        state, m = step(state, batch)
+                    torch.cuda.synchronize()
+                    traced_ms = (time.perf_counter() - t0) * 1e3
+                report = device_time_report(tdir, top=8)
+            total = re.search(r'^TOTAL\s+([\d.]+)', report, re.M)
+            check(total is not None, f'no device time in the trace of {name} b{b} steps: {report}')
+            device_ms = float(total[1])
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
+            check(np.isfinite(float(m['loss'])), f'timed {name} b{b} steps: loss {m["loss"]}')
+            eval_fn = ts.make_eval_step(mcfg, cfg)
+            eval_fn(state.params, batch)
+            events = []
+            for _ in range(10):
+                pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                pair[0].record()
+                eval_fn(state.params, batch)
+                pair[1].record()
+                events.append(pair)
+            eval_ms = median_ms(events)
+            trainer.evaluate_poses(state.params, batch, mcfg, dcfg)
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                trainer.evaluate_poses(state.params, batch, mcfg, dcfg)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            print(f'train step m{TRAIN_MODEL} s16 {name} {TRAIN_SIZE}x{TRAIN_SIZE} b{b} ({smi}): '
+                  f'{ms:.3f} ms (median of 15 '
+                  f'warm steps, CUDA events), {b / ms * 1e3:.1f} img/s; host clock over 15 '
+                  f'steps {host_ms:.3f} ms a step; split (medians of 10): forward '
+                  f'{split["forward"]:.3f} ms, loss + backward {split["loss+backward"]:.3f} ms, '
+                  f'Adam {split["adam"]:.3f} ms, upload and zero_grad {split["rest"]:.3f} ms '
+                  f'(step {split["step"]:.3f} ms); the batch\'s pinned staging and upload on the '
+                  f'host (`_step_batch`, host clock, median of 5) {np.median(staging):.3f} ms; '
+                  f'device busy {device_ms:.3f} ms of '
+                  f'{traced_ms:.3f} ms over 5 traced steps ({device_ms / traced_ms:.1%}); peak '
+                  f'memory {peak / 2 ** 20:.1f} MiB ({held / 2 ** 20:.1f} MiB held before the '
+                  f'step); eval loss {eval_ms:.3f} ms a batch (CUDA events), forward + decode '
+                  f'+ host scoring {np.median(walls):.3f} ms a batch (host clock, median of 5)',
+                  flush=True)
+            if b == 16:
+                print(f'device time of 5 traced {name} b16 steps by kernel (torch.profiler):\n'
+                      f'{report}', flush=True)
+            del state, step
+
+
+def phase9(dev, smi) -> tuple:
+    """Phase 9: heads-only fine-tuning of m101 s16 at 513x513. Returns K1's and
+    K2's launches by path."""
+    check(importlib.util.find_spec('cv2') is not None,
+          'phase 9 needs cv2 (the dataset reads and writes JPEG files)')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        ds = train_dataset(root)
+        step_k2 = train_step_parity(dev, ds)
+        runs = train_runs(dev, ds, root)
+        train_timing(dev, ds, smi)
+    print(f'phase 9 took {time.perf_counter() - t0:.1f} s', flush=True)
+    k1 = {f'train() {name} (phase 9)': n for name, (n, _) in runs.items()}
+    k2 = {'train step float32 b2 (phase 9)': step_k2[torch.float32],
+          'train step bf16 b2 (phase 9)': step_k2[torch.bfloat16],
+          **{f'train() {name} (phase 9)': n for name, (_, n) in runs.items()}}
+    return k1, k2
+
+
 def full_run(dev, smi) -> list:
     """Phases 3-8; returns the kernels' entries."""
     max_err = k1_checks(dev)
@@ -1476,16 +1910,22 @@ def full_run(dev, smi) -> list:
 
     # 8. the single pose and the apps (float32, as the JAX apps run)
     single_time, app_launches = phase8(dev, smi)
+
+    # 9. heads-only fine-tuning
+    train_k1, train_k2 = phase9(dev, smi)
     k1 = k1_entry(launches, max(max_err, single_time['err']), k1_time)
-    k1['launches_by_path'] = {'main path (phase 5)': launches, **app_launches}
-    return [k1, k2_entry(k2_launches, k2_err, k2_time)]
+    k1['launches_by_path'] = {'main path (phase 5)': launches, **app_launches, **train_k1}
+    k2 = k2_entry(k2_launches, k2_err, k2_time)
+    k2['launches_by_path'] = {'main path (phase 5)': k2_launches, **train_k2}
+    return [k1, k2]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=('k1', 'k2', 'apps'),
-                        help='the device and build phases, then K1 or K2 alone, or '
-                             'phase 8 (the single pose and the apps)')
+    parser.add_argument('--only', choices=('k1', 'k2', 'apps', 'train'),
+                        help='the device and build phases, then K1 or K2 alone, '
+                             'phase 8 (the single pose and the apps) or phase 9 '
+                             '(training)')
     only = parser.parse_args(argv).only
     found = device_phase()
     if found is None:
@@ -1513,6 +1953,16 @@ def main(argv=None) -> int:
         kernels = [dict(k1_entry(app_launches['single pose'], timing['err'], timing),
                         launches_from='the single-pose calls of phase 8, not the main path',
                         launches_by_path=app_launches)]
+    elif only == 'train':
+        train_k1, train_k2 = phase9(dev, smi)
+        # No main path runs here: `launches` is the bf16 train() run's.
+        run = 'train() bf16 (phase 9)'
+        kernels = [
+            dict(k1_entry(train_k1[run], 0.0, k1_timing(dev, peaked_heads(128, 33, 8, dev),
+                                                          DecodeConfig(min_pose_score=0.25))),
+                 launches_from=f'{run}, not the main path', launches_by_path=train_k1),
+            dict(k2_entry(train_k2[run], 0.0, k2_timing(dev)),
+                 launches_from=f'{run}, not the main path', launches_by_path=train_k2)]
     else:
         kernels = full_run(dev, smi)
     print(json.dumps({'kernels': kernels}))

@@ -1,9 +1,10 @@
-"""The demo CLIs and the Streamlit app on the port: the counterparts of the
-repository's `image_demo.py`, `benchmark.py`, `webcam_demo.py`,
-`video_demo.py` and `streamlit_demo.py`, with their flags, defaults, printed
-lines and outputs, and one flag more, `--device` (default `cuda`; `cpu` runs
-them on the host). Each runs the float32 model with TF32 off
-(`full_float32`). Run one as `python -m posenet_tpu_torch.apps.<name>`."""
+"""The demo CLIs, the Streamlit app and the training CLI on the port: the
+counterparts of the repository's `image_demo.py`, `benchmark.py`,
+`webcam_demo.py`, `video_demo.py`, `streamlit_demo.py` and `train.py`, with
+their flags, defaults, printed lines and outputs, and one flag more,
+`--device` (default `cuda`; `cpu` runs them on the host). Each demo runs the
+float32 model with TF32 off (`full_float32`). Run one as
+`python -m posenet_tpu_torch.apps.<name>`."""
 
 import torch
 

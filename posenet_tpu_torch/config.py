@@ -1,4 +1,4 @@
-"""Model and decoder configuration, mirroring `posenet_tpu.config`.
+"""Model, decoder and training configuration, mirroring `posenet_tpu.config`.
 
 Same fields and defaults as the JAX package, with `compute_dtype` as a
 `torch.dtype`. The JAX package's TPU-only knobs (the Pallas switch, the
@@ -9,6 +9,7 @@ route for each of them.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -46,6 +47,45 @@ class DecodeConfig:
     nms_radius: int = 20
     min_pose_score: float = 0.5
     max_candidates: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Fine-tuning hyperparameters."""
+
+    model_id: int = 101
+    output_stride: int = 16
+    batch_size: int = 2
+    learning_rate: float = 1e-4
+    num_epochs: int = 100
+    heatmap_loss_weight: float = 4.0   # the 4:1 heatmap:offset combination
+    offset_loss_weight: float = 1.0
+    early_stop_patience: int = 10
+    heads_only: bool = True            # freeze the trunk, train the four heads
+    checkpoint_dir: str = "./_train_ckpt"
+    keypoint_dir: str = "./keypoints_updated"
+    # Visual diagnostics: every `visual_every` epochs, dump predicted
+    # heatmap channels + keypoint overlays for the first eval batch under
+    # `output_dir` (0 = never).
+    output_dir: str = "./output"
+    visual_every: int = 0
+    # Data parallelism is not ported yet: None or 1 (one device).
+    num_devices: Optional[int] = None
+    seed: int = 0
+    # Trunk compute dtype of the training forward. bfloat16 is mixed
+    # precision: the FROZEN trunk (heads_only) runs bf16, through the fused
+    # sepconv kernel on its stride-1 rate-1 layers, while master params,
+    # the heads, the loss and Adam's state stay float32.
+    compute_dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.num_devices not in (None, 1):
+            raise NotImplementedError(
+                f"num_devices={self.num_devices}: data-parallel training is not "
+                f"ported yet (ROADMAP Queue 1 item 14, multi-device)")
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype}")
 
 
 # Default on-disk model directory.

@@ -1,4 +1,4 @@
-"""Keypoint topology and decoder constants (numpy only).
+"""Keypoint topology, decoder and training constants (numpy only).
 
 A copy of `posenet_tpu.constants`, not an import: the JAX package's facade
 imports jax eagerly, and this package must run without it. The part order,
@@ -13,7 +13,7 @@ import numpy as np
 __all__ = [
     "PART_NAMES", "NUM_KEYPOINTS", "PART_IDS", "CONNECTED_PART_NAMES",
     "CONNECTED_PART_INDICES", "LOCAL_MAXIMUM_RADIUS", "POSE_CHAIN",
-    "PARENT_CHILD_TUPLES", "NUM_EDGES", "EDGES",
+    "PARENT_CHILD_TUPLES", "NUM_EDGES", "EDGES", "LEFT_RIGHT_SWAP", "OKS_SIGMAS",
 ]
 
 PART_NAMES = [
@@ -25,6 +25,16 @@ PART_NAMES = [
 NUM_KEYPOINTS = len(PART_NAMES)  # 17
 
 PART_IDS = {pn: pid for pid, pn in enumerate(PART_NAMES)}
+
+# Keypoint index permutation under a horizontal image flip: every left*
+# part swaps with its right* counterpart, symmetric parts map to
+# themselves (the training flip augmentation).
+LEFT_RIGHT_SWAP = np.asarray([
+    PART_IDS["right" + n[4:]] if n.startswith("left")
+    else PART_IDS["left" + n[5:]] if n.startswith("right")
+    else i
+    for i, n in enumerate(PART_NAMES)
+], dtype=np.int32)
 
 # Pairs of keypoints drawn as skeleton line segments, in the order the
 # overlays draw them.
@@ -67,3 +77,8 @@ NUM_EDGES = len(PARENT_CHILD_TUPLES)  # 16
 
 # Column 0 = parent id, column 1 = child id.
 EDGES = np.asarray(PARENT_CHILD_TUPLES, dtype=np.int32)  # (16, 2)
+
+# COCO OKS per-keypoint falloff sigmas (the training metrics).
+OKS_SIGMAS = np.array(
+    [.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62,
+     1.07, 1.07, .87, .87, .89, .89], dtype=np.float32) / 10.0

@@ -4,7 +4,9 @@ The JAX package stores parameters as a pytree of HWIO kernels and saves it
 as a flat `.npz` (`backbone/{i}/{k}`, `heads/{name}/{k}`). `load_params_npz`
 reads that file with numpy alone, giving the same HWIO pytree;
 `params_from_jax` turns such a pytree into the port's tensors, whose
-kernels are OIHW as `torch.nn.functional.conv2d` takes them.
+kernels are OIHW as `torch.nn.functional.conv2d` takes them;
+`adam_state_from_jax` does the same for optax's Adam moments, into a
+`torch.optim.Adam`'s state.
 """
 
 from __future__ import annotations
@@ -55,3 +57,50 @@ def params_from_jax(params: Dict[str, Any],
         'heads': {name: _layer_from_jax(p, device)
                   for name, p in params['heads'].items()},
     }
+
+
+def _jax_leaf(tree, path):
+    """The leaf of a JAX pytree at `path`, or None where a subtree is None
+    (a part `optax.masked` keeps no state for)."""
+    for key in path:
+        if tree is None:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def adam_state_from_jax(mu, nu, count, params: Dict[str, Any],
+                        optimizer: torch.optim.Optimizer) -> None:
+    """Load optax Adam state into `optimizer`, a `torch.optim.Adam` over
+    tensors of `params` (the port's pytree).
+
+    `mu` and `nu` are optax's first and second moments as JAX-layout
+    pytrees of numpy arrays (HWIO kernels, converted to OIHW here, as
+    `params_from_jax` does); `count` is its step count. `optax.masked`
+    keeps moments only for the leaves it trains (the heads, heads-only):
+    give each leaf it masked out (a `MaskedNode`) as None. Every tensor the
+    optimizer trains needs moments, and no other tensor may have them."""
+    trained = {id(t) for group in optimizer.param_groups for t in group['params']}
+    step_device = (None if optimizer.defaults.get('capturable')
+                   or optimizer.defaults.get('fused') else 'cpu')
+    layers = ([(('backbone', i), layer) for i, layer in enumerate(params['backbone'])]
+              + [(('heads', name), p) for name, p in params['heads'].items()])
+    for path, layer in layers:
+        for k, t in layer.items():
+            m, v = _jax_leaf(mu, path + (k,)), _jax_leaf(nu, path + (k,))
+            if id(t) not in trained:
+                if m is not None or v is not None:
+                    raise ValueError(f'Adam moments for {path + (k,)}, which the '
+                                     f'optimizer does not train')
+                continue
+            if m is None or v is None:
+                raise ValueError(f'no Adam moments for the trained tensor {path + (k,)}')
+            moments = _layer_from_jax({k: m}, t.device)[k], _layer_from_jax({k: v}, t.device)[k]
+            for name, a in zip(('mu', 'nu'), moments):
+                if a.shape != t.shape:
+                    raise ValueError(f'{name} of {path + (k,)}: {tuple(a.shape)}, the '
+                                     f'tensor is {tuple(t.shape)}')
+            optimizer.state[t] = {
+                'step': torch.tensor(float(count), dtype=torch.float32,
+                                     device=step_device or t.device),
+                'exp_avg': moments[0], 'exp_avg_sq': moments[1]}

@@ -267,7 +267,7 @@ def run_heads(heads_params: Dict[str, Any],
 
 
 def forward(params: Dict[str, Any], x_nhwc: torch.Tensor,
-            cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+            cfg: ModelConfig, stop_trunk_gradient: bool = False) -> Dict[str, torch.Tensor]:
     """Backbone + heads.
 
     Args:
@@ -275,9 +275,18 @@ def forward(params: Dict[str, Any], x_nhwc: torch.Tensor,
         `cast_params`, on the device of `x_nhwc`.
       x_nhwc: (B, H, W, 3) float input in [-1, 1], H and W of the form
         output_stride*n + 1.
+      stop_trunk_gradient: heads-only fine-tuning. The trunk runs under
+        `torch.no_grad()` (no graph is kept for it, and the fused sepconv
+        kernel, which has no backward, is never differentiated) and its
+        features are detached; bf16 features are upcast to float32 before
+        the heads, so that the heads' gradients are float32.
     Returns:
       dict of NHWC float32 heads: heatmap (B,R,R',17) after sigmoid,
       heatmap_logits, offset (B,R,R',34), displacement_fwd and
       displacement_bwd (B,R,R',32), with R = (H-1)/output_stride + 1.
     """
-    return run_heads(params['heads'], run_trunk(params, x_nhwc, cfg))
+    if not stop_trunk_gradient:
+        return run_heads(params['heads'], run_trunk(params, x_nhwc, cfg))
+    with torch.no_grad():
+        feat = run_trunk(params, x_nhwc, cfg)
+    return run_heads(params['heads'], feat.detach().float())

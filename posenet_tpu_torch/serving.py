@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from posenet_tpu_torch.config import DecodeConfig, ModelConfig
+from posenet_tpu_torch.config import DecodeConfig, ModelConfig, TrainConfig
 from posenet_tpu_torch.decode import DecodedPoses
 from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.models.model_factory import PoseNet, resolve_device
@@ -257,23 +257,38 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument('--data_parallel_devices', type=int, default=None,
                    help='not ported yet (ROADMAP item 14)')
     p.add_argument('--from_checkpoint', type=str, default='',
-                   help='not ported yet (ROADMAP item 13, training)')
+                   help='checkpoint dir written by posenet-train-torch: export '
+                        'its latest (= best) step instead of ./_models weights. '
+                        '--model/--output_stride must match the training run')
     p.add_argument('--random_init_ok', action='store_true',
                    help='export random weights if the checkpoint is missing '
                         '(testing only)')
     args = p.parse_args(argv)
 
-    if args.from_checkpoint:
-        raise NotImplementedError(
-            '--from_checkpoint (a training checkpoint) is not ported yet (ROADMAP '
-            'Queue 1 item 13, training)')
     platforms = [s for s in args.platforms.split(',') if s]
     if not platforms:
         p.error('--platforms names no platform')
-    model = load_model(args.model, args.output_stride,
-                       compute_dtype=getattr(torch, args.compute_dtype),
-                       allow_random_init=args.random_init_ok,
-                       device=_platform_device(platforms[0]))
+    device = _platform_device(platforms[0])
+    compute_dtype = getattr(torch, args.compute_dtype)
+    if args.from_checkpoint:
+        from posenet_tpu_torch.training import train_step as ts
+        from posenet_tpu_torch.training.trainer import restore_checkpoint
+
+        # The training CLI always trains with TrainConfig's optimizer
+        # defaults (heads-only Adam), so a default-config template matches
+        # any of its checkpoints.
+        train_cfg = TrainConfig(model_id=args.model, output_stride=args.output_stride)
+        init = mobilenet_v1.init_params(torch.Generator().manual_seed(0),
+                                        ModelConfig(args.model, args.output_stride))
+        restored = restore_checkpoint(args.from_checkpoint,
+                                      ts.init_train_state(init, train_cfg, device))
+        if restored is None:
+            raise SystemExit(f'no checkpoint found in {args.from_checkpoint}')
+        model = PoseNet(ts.tree_map(torch.Tensor.detach, restored.params),
+                        ModelConfig(args.model, args.output_stride, compute_dtype))
+    else:
+        model = load_model(args.model, args.output_stride, compute_dtype=compute_dtype,
+                           allow_random_init=args.random_init_ok, device=device)
     # valid_resolution takes (width, height) and returns (w, h)
     vw, vh = valid_resolution(args.size[1], args.size[0], args.output_stride)
     meta = save_serving_artifact(

@@ -285,8 +285,14 @@ def test_serving_entry_points_default_to_the_card(artifact, tmp_path, monkeypatc
     (["--data_parallel_devices", "2", "--random_init_ok"], "item 14"),
 ])
 def test_export_cli_unported_options(tmp_path, monkeypatch, flags, item):
+    """Item 14's option raises NotImplementedError naming its item. Item
+    13's `--from_checkpoint` is ported with training: a directory without
+    a checkpoint exits naming it, and writes nothing
+    (`test_torch_trainer.py` exports a real checkpoint)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
+    error, match = ((SystemExit, "no checkpoint found in ckpt") if item == "item 13"
+                    else (NotImplementedError, item))
+    with pytest.raises(error, match=match):
         serving.main(["--model", "50", "--size", "65", "65", "--platforms", "cpu",
                       "--output", str(tmp_path / "x.posenet"), *flags])
     assert not os.path.exists(tmp_path / "x.posenet")
