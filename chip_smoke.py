@@ -6,6 +6,8 @@
     python3 chip_smoke.py --only k2   # device, build, K2's checks and timing
     python3 chip_smoke.py --only apps # device, build, phase 8
     python3 chip_smoke.py --only train # device, build, phase 9
+    python3 chip_smoke.py --only parallel # device, build, phase 10
+    python3 chip_smoke.py --only multicard # phase 10's layouts across several cards
 
 Phases, each printing its own line; any failure exits nonzero and prints
 no result:
@@ -125,15 +127,39 @@ no result:
    `profiling.trace`, against the host clock); the peak memory of a step
    (`torch.cuda.max_memory_allocated`); an eval batch's loss, and its
    forward + decode + host scoring.
+10. multi-device on the one card, m101 s16 513x513 bf16 (published widths
+   and depth, seeded random weights), every shard on cuda:0 through a
+   device list that repeats it. (a) The data partition of 128 synth_photo
+   frames over 2 shards and over every visible card, and of an uneven 129
+   over 2: per shard its heads against the unsharded forward's rows,
+   bitwise or within the bf16 bar 2e-3 (which held is printed), and its
+   poses bitwise wherever its heads are; K2 launched 9 times and K1 once
+   a shard. (b) The spatial partition of one frame, trunk biases + 1.0,
+   over 2 and 4 shards, bf16 and float32: the gathered heads against the
+   unsharded heads (2e-3; 1e-4 of each head's scale in float32), the
+   poses bitwise where the heads are; K2 9 times a shard, K1 once. (c)
+   The data-parallel train step at b16 on phase 9's dataset, world size 1
+   over NCCL, against the single-device step, float32 and bf16: loss,
+   head gradients and heads after Adam bitwise; then 2 gloo ranks on the
+   one card (8 images each) against one device, or why gloo refused.
+   (d) `LivePipelineBackend(num_devices=1)` and an artifact exported with
+   `data_parallel_devices=1`, served, each reply equal to the in-process
+   result; the artifact bitwise equal to the pipeline. (e) Timing beside
+   the card's `name, power.limit`, each layout in turns: data-partition
+   img/s over 2 shards against the unsharded pipeline (best of 3 windows
+   of 5 b128 batches); spatial b1 latency at 1, 2 and 4 shards against the
+   plain pipeline (CUDA events, a call's mean over 20); the DP step at
+   world size 1 against the plain step (in (c)).
 Then one JSON line describing the kernels (K1's and K2's with their
-launches on each path of phases 5, 8 and 9), and as the last line
+launches on each path of phases 5, 8, 9 and 10), and as the last line
 {"ok": true, "device": {...}}. Its times are CUDA events per call (host
 dispatch included), with one exception: K1's `ms` is CUDA graph replay,
 the device alone, because its per-call time is the host's; K1's
 `call_ms` is the per-call time, the method of its `plain_ms` (the plain
 version cannot be captured in a graph: it copies its stride to the
 card) and of K1's `ms` before the graph timing. `--only train` runs phases 1, 2
-and 9, then K1's and K2's timing of 7. `--only k1` runs phases 1, 2, K1's part of
+and 9, then K1's and K2's timing of 7; `--only parallel` the same with
+phase 10. `--only k1` runs phases 1, 2, K1's part of
 3 and K1's timing of 7; `--only apps` runs phases 1, 2 and 8, its K1
 entry timed at the single pose's shape; `--only k2` runs phases 1, 2, K2's part of 3, the
 bf16 trunk check of 4 and K2's per-layer timing of 7; each then prints the
@@ -170,6 +196,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from posenet_tpu_torch import (PoseNetPipeline, decode, decode_single_pose, load_model,
                                native_preprocess)
+from posenet_tpu_torch.apps import full_float32
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig, TrainConfig
 from posenet_tpu_torch.converter import weights
 from posenet_tpu_torch.decode import (_BWD_LEVELS, _FWD_LEVELS, DecodedPoses, _prepare_decode,
@@ -177,6 +204,9 @@ from posenet_tpu_torch.decode import (_BWD_LEVELS, _FWD_LEVELS, DecodedPoses, _p
 from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.models.model_factory import PoseNet
 from posenet_tpu_torch.ops import _build, sepconv, traversal
+from posenet_tpu_torch.parallel import mesh as mesh_lib
+from posenet_tpu_torch.parallel import spatial
+from posenet_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from posenet_tpu_torch.pipeline import infer, infer_raw, normalize
 from posenet_tpu_torch.preprocess import preprocess_on_device, process_input
 from posenet_tpu_torch.profiling import StageTimer, device_time_report, trace
@@ -1724,6 +1754,478 @@ def phase9(dev, smi) -> tuple:
     return k1, k2
 
 
+# Phase 10: multi-device on the one card, m101 s16 at 513x513 in bf16.
+PARALLEL_MODEL, PARALLEL_SIZE = 101, 513
+
+
+def step_times(state, step, batch, n=15) -> float:
+    """Median CUDA-event ms of `n` steps, after 3 to warm up."""
+    for _ in range(3):
+        state, _ = step(state, batch)
+    events = []
+    for _ in range(n):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        state, _ = step(state, batch)
+        pair[1].record()
+        events.append(pair)
+    return median_ms(events)
+
+
+def shard_heads(params, frames, cfg, bounds):
+    """The heads each shard's forward computes, and the unsharded forward's
+    rows of them: [(shard heads, unsharded rows)] for each (lo, hi)."""
+    with torch.no_grad():
+        whole = mobilenet_v1.forward(params, normalize(frames, cfg.compute_dtype), cfg)
+        out = []
+        for lo, hi in bounds:
+            x = frames[lo:hi]
+            if x.shape[0] < hi - lo:   # the pad of an uneven batch
+                x = torch.cat([x, x.new_zeros((hi - lo - x.shape[0], *x.shape[1:]))])
+            part = mobilenet_v1.forward(params, normalize(x, cfg.compute_dtype), cfg)
+            out.append(({k: v[:frames.shape[0] - lo] for k, v in part.items()},
+                        {k: v[lo:hi] for k, v in whole.items()}))
+    return out
+
+
+def heads_gap(got, ref) -> float:
+    return max(float((got[k] - ref[k]).abs().max()) for k in HEAD_ORDER)
+
+
+def data_partition(model, dcfg, frames, devices, name) -> dict:
+    """The data partition of `frames` over `devices` against the unsharded
+    pipeline: per shard its heads (bitwise, or within the bf16 bar 2e-3)
+    and its poses (bitwise wherever the shard's heads are). Returns K1's and
+    K2's launches over the sharded call."""
+    plain = PoseNetPipeline(model, dcfg)
+    sharded = PoseNetPipeline(model, dcfg, mesh=make_mesh(devices=devices))
+    ref = plain(frames)
+    sharded(frames)
+    torch.cuda.synchronize()
+    traversal.launches = sepconv.launches = 0
+    got = sharded(frames)
+    torch.cuda.synchronize()
+    launches = {'K1': traversal.launches, 'K2': sepconv.launches}
+    n = len(devices)
+    per = -(-frames.shape[0] // n)
+    k2 = k2_per_forward(model.cfg)
+    check(launches == {'K1': n, 'K2': k2 * n},
+          f'data partition {name}: launches {launches}, expected K1 {n}, K2 {k2 * n}')
+    check(tuple(got.keypoint_coords.shape) == (frames.shape[0], 10, 17, 2),
+          f'data partition {name}: shape {tuple(got.keypoint_coords.shape)}')
+    held = []
+    for i, (part, whole) in enumerate(shard_heads(plain.params, frames, model.cfg,
+                                                  [(i * per, (i + 1) * per)
+                                                   for i in range(n)])):
+        lo, hi = i * per, min((i + 1) * per, frames.shape[0])
+        bitwise = all(torch.equal(part[k], whole[k]) for k in HEAD_ORDER)
+        gap = heads_gap(part, whole)
+        check(gap <= 2e-3, f'data partition {name}: shard {i} heads {gap} from the unsharded '
+                           f'(limit 2e-3)')
+        shard_poses = DecodedPoses(*(t[lo:hi] for t in got))
+        ref_poses = DecodedPoses(*(t[lo:hi] for t in ref))
+        poses_equal = all(torch.equal(a, b) for a, b in zip(shard_poses, ref_poses))
+        if bitwise:
+            check(poses_equal, f'data partition {name}: shard {i} heads bitwise, poses not')
+        held.append(f'shard {i} heads ' + ('bitwise' if bitwise else f'within {gap:.3g}') +
+                    f', poses {"bitwise" if poses_equal else "differ"}')
+    n_poses = (got.pose_scores > 0).sum(1)
+    check(bool((n_poses >= 1).all()), f'data partition {name}: no pose in some frame')
+    print(f'data partition {name}, m{PARALLEL_MODEL} s16 bf16 '
+          f'{frames.shape[0]}x{PARALLEL_SIZE}x{PARALLEL_SIZE} synth_photo frames, against the '
+          f'unsharded pipeline: {"; ".join(held)}; poses per frame '
+          f'{int(n_poses.min())}-{int(n_poses.max())}; K1 launches {launches["K1"]}, '
+          f'K2 {launches["K2"]}', flush=True)
+    return launches
+
+
+def spatial_partition(model_cfg, params, frame, dcfg, devices) -> dict:
+    """The spatial partition of one frame over `devices` against
+    the unsharded forward and decode: heads within 2e-3 of each other
+    (bf16) or 1e-4 of each head's scale (float32), poses bitwise where the
+    heads are. Returns K1's and K2's launches over the sharded call."""
+    model = PoseNet(params, model_cfg)
+    plain = PoseNetPipeline(model, dcfg)
+    n = len(devices)
+    sharded = PoseNetPipeline(model, dcfg, mesh=make_mesh(devices=devices),
+                              partition='spatial')
+    ref = plain(frame)
+    sharded(frame)
+    torch.cuda.synchronize()
+    traversal.launches = sepconv.launches = 0
+    got = sharded(frame)
+    torch.cuda.synchronize()
+    launches = {'K1': traversal.launches, 'K2': sepconv.launches}
+    bf16 = model_cfg.compute_dtype == torch.bfloat16
+    check(launches == {'K1': 1, 'K2': k2_per_forward(model_cfg) * n},
+          f'spatial partition over {n}: launches {launches}')
+    with torch.no_grad():
+        x = normalize(frame, model_cfg.compute_dtype)
+        whole = mobilenet_v1.head_conv(plain.params['heads'],
+                                       mobilenet_v1.run_trunk(plain.params, x, model_cfg))
+        part = spatial.forward(sharded.replicas, x, model_cfg, sharded.mesh.devices)
+    bitwise = torch.equal(part, whole)
+    gap = float((part - whole).abs().max())
+    limit = 2e-3 if bf16 else 1e-4 * max(1.0, float(whole.abs().max()))
+    check(gap <= limit, f'spatial partition over {n}: heads {gap} apart (limit {limit})')
+    poses_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    if bitwise:
+        check(poses_equal, f'spatial partition over {n}: heads bitwise, poses not')
+    score_gap = float((got.pose_scores - ref.pose_scores).abs().max())
+    coord_gap = float((got.keypoint_coords - ref.keypoint_coords).abs().max())
+    print(f'spatial partition over {n} shards on {sorted({str(d) for d in devices})}, '
+          f'm{model_cfg.model_id} s16 '
+          f'{"bf16" if bf16 else "float32"} 1x{PARALLEL_SIZE}x{PARALLEL_SIZE}, trunk biases '
+          f'+ 1.0: heads '
+          + ('bitwise' if bitwise else f'within {gap:.3g} (limit {limit:.3g})')
+          + f' of the unsharded forward; poses ' + ('bitwise' if poses_equal else
+                                                    f'pose scores within {score_gap:.3g}, '
+                                                    f'coordinates within {coord_gap:.3g} px')
+          + f', {int((got.pose_scores > 0).sum())} poses; K1 launches {launches["K1"]}, K2 '
+          f'{launches["K2"]}', flush=True)
+    return launches
+
+
+def rank_step(out_path: str, batch, dtype_name: str, device=None):
+    """One rank of a data-parallel world (phase 10): the global batch's
+    step from the seeded weights, this rank's slice on `device` (None: its
+    own card), then the step's median time over 15 more; rank 0 writes the
+    loss, the heads and the time."""
+    full_float32()   # as the parent process runs: TF32 off
+    device = mesh_lib.local_device('cuda') if device is None else torch.device(device)
+    dtype = getattr(torch, dtype_name)
+    cfg, mcfg = train_cfgs(dtype)
+    state = ts.init_train_state(train_init_params(), cfg, device)
+    step = ts.make_train_step(mcfg, cfg, mesh=make_mesh(devices=[device]))
+    state, m = step(state, batch)
+    result = {'loss': float(m['loss']),
+              'heads': ts.tree_map(lambda t: t.detach().cpu(), state.params)['heads']}
+    if device.type == 'cuda':
+        result['ms'] = step_times(state, step, batch)
+    if torch.distributed.get_rank() == 0:
+        torch.save(result, out_path)
+
+
+def check_ranks(out_path, state, metrics, init, what) -> dict:
+    """Rank 0's result of `rank_step` against one device's step from the
+    same weights: the loss within 1e-5 relative, each head's update within
+    1e-3 of its norm (Adam turns rounding-level gradients into a fraction
+    of a step on single elements). Returns the result."""
+    got = torch.load(out_path, weights_only=True)
+    loss_gap = abs(got['loss'] - float(metrics['loss'])) / abs(float(metrics['loss']))
+    check(loss_gap <= 1e-5, f'{what}: loss {loss_gap} relative from one device')
+    gaps = []
+    for n in HEAD_ORDER[:2]:
+        for k, t in got['heads'][n].items():
+            ref = state.params['heads'][n][k].detach().cpu()
+            before = init['heads'][n][k]
+            gaps.append(float((t - ref).norm() / (ref - before).norm()))
+    check(max(gaps) <= 1e-3, f'{what}: heads\' updates {max(gaps)} from one device\'s')
+    got['loss_gap'], got['update_gap'] = loss_gap, max(gaps)
+    return got
+
+
+def dp_train_phase(dev, ds, root) -> dict:
+    """Phase 10 (c): the DP step at b16 at world size 1 over NCCL against
+    the single-device step, float32 and bf16, bitwise; its time against
+    the plain step's; then 2 gloo ranks on the one card. Returns K2's
+    launches of the world-1 bf16 step."""
+    batch = first_batch(ds, 16)
+    init = train_init_params()
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')   # a world of this host alone
+    backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+    initialize_distributed(f'127.0.0.1:{mesh_lib._free_port()}', 1, 0, backend=backend)
+    launches = {}
+    try:
+        mesh = make_mesh()
+        check(mesh.devices == (dev,) and mesh.size == 1, f'world mesh {mesh}')
+        for dtype in (torch.float32, torch.bfloat16):
+            name = 'float32' if dtype == torch.float32 else 'bf16'
+            cfg, mcfg = train_cfgs(dtype, batch_size=16)
+            out = {}
+            # cuDNN's weight gradients may sum in a run-dependent order: the
+            # bitwise comparison runs in its deterministic mode, and whether
+            # two plain steps agree without it is printed.
+            for kind, m, deterministic in (('plain', None, False), ('plain again', None, False),
+                                           ('plain', None, True), ('dp', mesh, True)):
+                torch.backends.cudnn.deterministic = deterministic
+                state = ts.init_train_state(init, cfg, dev)
+                sepconv.launches = 0
+                state, metrics = ts.make_train_step(mcfg, cfg, mesh=m)(state, batch)
+                torch.cuda.synchronize()
+                out[kind, deterministic] = (
+                    metrics, {(n, k): (t.grad.clone(), t.detach().clone()) for n in HEAD_ORDER
+                              for k, t in state.params['heads'][n].items()},
+                    sepconv.launches)
+            torch.backends.cudnn.deterministic = False
+
+            def gaps(a, b):
+                (am, ah, _), (bm, bh, _) = out[a], out[b]
+                return ({k: float((am[k] - bm[k]).abs()) for k in am},
+                        max(float((x - y).abs().max()) for key in ah
+                            for x, y in zip(ah[key], bh[key])))
+
+            dk2 = out['dp', True][2]
+            launches[name] = dk2
+            check(dk2 == k2_per_forward(mcfg), f'DP {name} step launched K2 {dk2} times')
+            dp_gap = gaps(('plain', True), ('dp', True))
+            check(max(dp_gap[0].values()) == 0 and dp_gap[1] == 0,
+                  f'DP {name} step at world size 1 ({backend}) differs from the single-device '
+                  f'step, both with cuDNN deterministic: metrics {dp_gap[0]}, head gradients '
+                  f'and heads {dp_gap[1]}')
+            again = gaps(('plain', False), ('plain again', False))
+            reproducible = max(again[0].values()) == 0 and again[1] == 0
+            times = {}
+            for kind, m in (('plain', None), ('dp', mesh), ('dp', mesh), ('plain', None)):
+                state = ts.init_train_state(init, cfg, dev)
+                times.setdefault(kind, []).append(
+                    step_times(state, ts.make_train_step(mcfg, cfg, mesh=m), batch))
+            print(f'DP train step m{TRAIN_MODEL} s16 {name} b16 {TRAIN_SIZE}x{TRAIN_SIZE}, world '
+                  f'size 1 over {backend}: loss, head gradients and heads after Adam bitwise equal '
+                  f'to the single-device step (cuDNN deterministic); two plain steps without '
+                  f'deterministic mode ' + ('bitwise equal' if reproducible else
+                                            f'apart by metrics {again[0]}, gradients and '
+                                            f'heads {again[1]:.3g}') +
+                  f'; K2 launches {dk2}; step {np.mean(times["dp"]):.3f} ms (plain '
+                  f'{np.mean(times["plain"]):.3f} ms; CUDA events, median of 15, runs plain, '
+                  f'dp, dp, plain: {times})', flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # Two gloo ranks on the one card: NCCL refuses two ranks on one device.
+    cfg, mcfg = train_cfgs(torch.float32, batch_size=16)
+    state = ts.init_train_state(init, cfg, dev)
+    state, m = ts.make_train_step(mcfg, cfg)(state, batch)
+    out_path = os.path.join(root, 'gloo_rank0.pt')
+    try:
+        mesh_lib.launch(rank_step, 2, args=(out_path, batch, 'float32', str(dev)),
+                        backend='gloo')
+    except Exception as e:   # noqa: BLE001  (the issue asks why, where gloo refuses)
+        print(f'DP train step over 2 gloo ranks on {dev}: not run, gloo refused: '
+              f'{type(e).__name__}: {str(e).splitlines()[-1] if str(e) else e}', flush=True)
+        return launches
+    got = check_ranks(out_path, state, m, init, '2 gloo ranks')
+    print(f'DP train step m{TRAIN_MODEL} s16 float32 b16 over 2 gloo ranks on {dev} (8 '
+          f'images each): loss {got["loss_gap"]:.3g} relative from the single-device step '
+          f'(limit 1e-5), heads\' updates within {got["update_gap"]:.3g} of their norm (limit '
+          f'1e-3); step {got.get("ms", float("nan")):.3f} ms (CUDA events on rank 0, median '
+          f'of 15)', flush=True)
+    return launches
+
+
+def parallel_serving(model, dev, frames) -> None:
+    """Phase 10 (d): LivePipelineBackend(num_devices=1), the data partition
+    over the card, and an artifact exported with data_parallel_devices=1,
+    each served and equal to the in-process result; the artifact bitwise
+    equal to the pipeline."""
+    dcfg = DecodeConfig(min_pose_score=0.0)
+    live = LivePipelineBackend(model, decode_cfg=dcfg,
+                               input_hw=(PARALLEL_SIZE, PARALLEL_SIZE), batch_sizes=(1, 8),
+                               num_devices=1)
+    check(live.meta['num_devices'] == 1 and live._pipe.mesh is not None,
+          f'live backend meta {live.meta}')
+    serve_and_check(live, 'live num_devices=1', frames, 'synth_photo frame')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'dp1.posenet')
+        t0 = time.perf_counter()
+        meta = save_serving_artifact(model, path, decode_cfg=dcfg, batch_sizes=(1, 8),
+                                     input_hw=(PARALLEL_SIZE, PARALLEL_SIZE),
+                                     platforms=(dev.type,), data_parallel_devices=1)
+        export_s = time.perf_counter() - t0
+        check(meta['data_parallel_devices'] == 1, f'artifact meta {meta}')
+        art = load_serving_artifact(path, device=dev.type)
+        check(art.mesh is not None and art.device == dev, f'artifact on {art.device}')
+        ref = PoseNetPipeline(model, dcfg)(frames[:8])
+        got = art(frames[:8])
+        for f, a, b in zip(DecodedPoses._fields, got, ref):
+            check(torch.equal(a.cpu(), b.cpu()),
+                  f'data_parallel_devices=1 artifact b8 differs from the pipeline in {f}')
+        print(f'serving: artifact with data_parallel_devices=1 exported in {export_s:.1f} s, '
+              f'b8 bitwise equal to PoseNetPipeline', flush=True)
+        serve_and_check(art, 'artifact data_parallel_devices=1', frames, 'synth_photo frame')
+
+
+def best_img_s(pipe, frames) -> float:
+    """img/s of `pipe` on `frames` (on the card): best of 3 windows of 5
+    calls, each closed by synchronize."""
+    pipe(frames)
+    torch.cuda.synchronize()
+    best = float('inf')
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pipe(frames)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return 5 * frames.shape[0] / best
+
+
+def layout_timing(model, spatial_params, dcfg, frames, data_layouts, spatial_layouts, smi):
+    """Phase 10 (e) and multicard's timing: the data partition's img/s on
+    the b128 `frames` for each of `data_layouts` (name -> device list, None
+    for the unsharded pipeline), and one frame's latency for each of
+    `spatial_layouts` (CUDA events on the first card, a call's mean over
+    20, host dispatch included), every layout in turns, forward then back."""
+    def pipes(params, layouts, partition):
+        m = PoseNet(params, model.cfg)
+        return {name: PoseNetPipeline(m, dcfg) if devices is None else
+                PoseNetPipeline(m, dcfg, mesh=make_mesh(devices=devices), partition=partition)
+                for name, devices in layouts.items()}
+
+    data, spatial_pipes = (pipes(model.params, data_layouts, 'data'),
+                           pipes(spatial_params, spatial_layouts, 'spatial'))
+    rates, lat = {}, {}
+    for name in list(data) + list(data)[::-1]:
+        rates.setdefault(name, []).append(best_img_s(data[name], frames))
+    for name in list(spatial_pipes) + list(spatial_pipes)[::-1]:
+        lat.setdefault(name, []).append(
+            cuda_ms(lambda p=spatial_pipes[name]: p(frames[:1]), 20))
+    print(f'data partition timing, m{PARALLEL_MODEL} s16 bf16 b{frames.shape[0]} '
+          f'{PARALLEL_SIZE}x{PARALLEL_SIZE} ({smi}), img/s (best of 3 windows of 5, frames on '
+          f'the card): ' + ', '.join(f'{k} {np.mean(v):.1f}' for k, v in rates.items()) +
+          f' (runs: {rates})', flush=True)
+    print(f'spatial partition latency, m{PARALLEL_MODEL} s16 bf16 '
+          f'1x{PARALLEL_SIZE}x{PARALLEL_SIZE}, trunk biases + 1.0 ({smi}), ms a frame (CUDA '
+          f'events, a call\'s mean over 20): ' +
+          ', '.join(f'{k} {np.mean(v):.3f}' for k, v in lat.items()) + f' (runs: {lat})',
+          flush=True)
+
+
+def inflate_biases(params):
+    """`params` with every trunk bias + 1.0, a checkpoint's scale: a pad
+    row that leaked into the image would move the heads."""
+    out = ts.tree_map(lambda t: t, params)
+    for layer in out['backbone']:
+        for k in layer:
+            if k.endswith('b'):
+                layer[k] = layer[k] + 1.0
+    return out
+
+
+def phase10(dev, smi) -> tuple:
+    """Phase 10: the multi-device layer on the one card. Returns K1's and
+    K2's launches by path."""
+    check(importlib.util.find_spec('cv2') is not None,
+          'phase 10 needs cv2 (its train step reads phase 9\'s JPEG dataset)')
+    t0 = time.perf_counter()
+    model = load_model(PARALLEL_MODEL, 16, allow_random_init=True, device=dev,
+                       compute_dtype=torch.bfloat16)
+    dcfg = DecodeConfig(min_pose_score=0.0)
+    photos = np.stack([synth_photo(PARALLEL_SIZE, PARALLEL_SIZE, 700 + i) for i in range(8)])
+    frames = torch.from_numpy(np.resize(photos, (129, PARALLEL_SIZE, PARALLEL_SIZE, 3))).to(dev)
+    k1, k2 = {}, {}
+
+    # (a) the data partition
+    for frames_n, devices, name in ((frames[:128], [dev] * 2, f'b128 over 2 shards of {dev}'),
+                                    (frames[:128], list(make_mesh().devices),
+                                     f'b128 over every visible card '
+                                     f'({torch.cuda.device_count()})'),
+                                    (frames, [dev] * 2, f'uneven b129 over 2 shards of {dev}')):
+        launches = data_partition(model, dcfg, frames_n, devices, name)
+        k1[f'data partition {name} (phase 10)'] = launches['K1']
+        k2[f'data partition {name} (phase 10)'] = launches['K2']
+
+    # (b) the spatial partition, biases + 1.0
+    inflated = inflate_biases(model.params)
+    for dtype in (torch.bfloat16, torch.float32):
+        mcfg = ModelConfig(PARALLEL_MODEL, 16, compute_dtype=dtype)
+        for n in (2, 4):
+            launches = spatial_partition(mcfg, inflated, frames[:1], dcfg, [dev] * n)
+            if dtype == torch.bfloat16:
+                k1[f'spatial partition b1 over {n} shards (phase 10)'] = launches['K1']
+                k2[f'spatial partition b1 over {n} shards (phase 10)'] = launches['K2']
+
+    # (c) the DP train step; (d) served replies; (e) timing
+    with tempfile.TemporaryDirectory() as root:
+        ds = train_dataset(root)
+        step_k2 = dp_train_phase(dev, ds, root)
+    k2['DP train step bf16 b16, world size 1 (phase 10)'] = step_k2['bf16']
+    parallel_serving(model, dev, frames[:16].cpu().numpy())
+    layout_timing(model, inflated, dcfg, frames[:128],
+                  {'unsharded': None, f'2 shards of {dev}': [dev] * 2},
+                  {'plain': None, **{f'{n} shard(s) of {dev}': [dev] * n for n in (1, 2, 4)}},
+                  smi)
+    print(f'phase 10 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return k1, k2
+
+
+def multicard(smi) -> tuple:
+    """`--only multicard`, on a host of several cards (not part of the
+    one-card run): the layouts of phase 10 across every visible card. The
+    data partition of 128 and of an uneven 129 frames; the spatial
+    partition of one frame, bf16 and float32; the DP train step at b16
+    over one NCCL rank a card against one card; an artifact exported with
+    data_parallel_devices=N and loaded over the N cards (its programs moved
+    off the card they were exported on) against the pipeline; img/s and
+    latency against one card. Returns K1's and K2's launches by path."""
+    n = torch.cuda.device_count()
+    check(n >= 2, f'--only multicard needs several cards, found {n}')
+    devs = [torch.device('cuda', i) for i in range(n)]
+    t0 = time.perf_counter()
+    model = load_model(PARALLEL_MODEL, 16, allow_random_init=True, device=devs[0],
+                       compute_dtype=torch.bfloat16)
+    dcfg = DecodeConfig(min_pose_score=0.0)
+    photos = np.stack([synth_photo(PARALLEL_SIZE, PARALLEL_SIZE, 700 + i) for i in range(8)])
+    frames = torch.from_numpy(np.resize(photos, (129, PARALLEL_SIZE, PARALLEL_SIZE, 3))
+                              ).to(devs[0])
+    k1, k2 = {}, {}
+    for frames_n, name in ((frames[:128], f'b128 over {n} cards'),
+                           (frames, f'uneven b129 over {n} cards')):
+        launches = data_partition(model, dcfg, frames_n, devs, name)
+        k1[f'data partition {name} (multicard)'] = launches['K1']
+        k2[f'data partition {name} (multicard)'] = launches['K2']
+    inflated = inflate_biases(model.params)
+    for dtype in (torch.bfloat16, torch.float32):
+        launches = spatial_partition(ModelConfig(PARALLEL_MODEL, 16, compute_dtype=dtype),
+                                     inflated, frames[:1], dcfg, devs)
+        if dtype == torch.bfloat16:
+            k1[f'spatial partition b1 over {n} cards (multicard)'] = launches['K1']
+            k2[f'spatial partition b1 over {n} cards (multicard)'] = launches['K2']
+
+    with tempfile.TemporaryDirectory() as root:
+        ds = train_dataset(root)
+        batch = first_batch(ds, 16)
+        init = train_init_params()
+        cfg, mcfg = train_cfgs(torch.float32, batch_size=16)
+        state = ts.init_train_state(init, cfg, devs[0])
+        step = ts.make_train_step(mcfg, cfg)
+        state, m = step(state, batch)
+        one_ms = step_times(ts.init_train_state(init, cfg, devs[0]), step, batch)
+        out_path = os.path.join(root, 'nccl_rank0.pt')
+        mesh_lib.launch(rank_step, n, args=(out_path, batch, 'float32', None), backend='nccl')
+        got = check_ranks(out_path, state, m, init, f'{n} NCCL ranks')
+        print(f'DP train step m{TRAIN_MODEL} s16 float32 b16 over {n} NCCL ranks, one a card '
+              f'({16 // n} images each): loss {got["loss_gap"]:.3g} relative from one card '
+              f'(limit 1e-5), heads\' updates within {got["update_gap"]:.3g} of their norm '
+              f'(limit 1e-3); step {got["ms"]:.3f} ms on rank 0, one card {one_ms:.3f} ms (CUDA '
+              f'events, median of 15; {smi})', flush=True)
+
+        path = os.path.join(root, 'dp.posenet')
+        save_serving_artifact(model, path, decode_cfg=dcfg, batch_sizes=(8,),
+                              input_hw=(PARALLEL_SIZE, PARALLEL_SIZE), platforms=('cuda',),
+                              data_parallel_devices=n)
+        art = load_serving_artifact(path)
+        check(art.mesh.devices == tuple(devs), f'artifact over {art.mesh.devices}')
+        ref = PoseNetPipeline(model, dcfg)(frames[:8])
+        art(frames[:8])
+        torch.cuda.synchronize()
+        traversal.launches = sepconv.launches = 0
+        out = art(frames[:8])
+        torch.cuda.synchronize()
+        check(traversal.launches == n and sepconv.launches == 9 * n,
+              f'artifact over {n} cards launched K1 {traversal.launches}, K2 '
+              f'{sepconv.launches} times')
+        for f, a, b in zip(DecodedPoses._fields, out, ref):
+            check(torch.equal(a, b), f'artifact over {n} cards differs from the pipeline in {f}')
+        print(f'serving: artifact with data_parallel_devices={n}, loaded over {n} cards, b8 '
+              f'bitwise equal to PoseNetPipeline; K1 launches {n}, K2 {9 * n}', flush=True)
+
+    layout_timing(model, inflated, dcfg, frames[:128], {'one card': None, f'{n} cards': devs},
+                  {'one card': None, f'{n} cards': devs}, smi)
+    print(f'multicard took {time.perf_counter() - t0:.1f} s', flush=True)
+    return k1, k2
+
+
 def full_run(dev, smi) -> list:
     """Phases 3-8; returns the kernels' entries."""
     max_err = k1_checks(dev)
@@ -1913,19 +2415,25 @@ def full_run(dev, smi) -> list:
 
     # 9. heads-only fine-tuning
     train_k1, train_k2 = phase9(dev, smi)
+
+    # 10. multi-device on the one card
+    parallel_k1, parallel_k2 = phase10(dev, smi)
     k1 = k1_entry(launches, max(max_err, single_time['err']), k1_time)
-    k1['launches_by_path'] = {'main path (phase 5)': launches, **app_launches, **train_k1}
+    k1['launches_by_path'] = {'main path (phase 5)': launches, **app_launches, **train_k1,
+                              **parallel_k1}
     k2 = k2_entry(k2_launches, k2_err, k2_time)
-    k2['launches_by_path'] = {'main path (phase 5)': k2_launches, **train_k2}
+    k2['launches_by_path'] = {'main path (phase 5)': k2_launches, **train_k2, **parallel_k2}
     return [k1, k2]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=('k1', 'k2', 'apps', 'train'),
+    parser.add_argument('--only', choices=('k1', 'k2', 'apps', 'train', 'parallel',
+                                           'multicard'),
                         help='the device and build phases, then K1 or K2 alone, '
-                             'phase 8 (the single pose and the apps) or phase 9 '
-                             '(training)')
+                             'phase 8 (the single pose and the apps), phase 9 '
+                             '(training), phase 10 (multi-device on one card) or its '
+                             'layouts across every card of a host with several')
     only = parser.parse_args(argv).only
     found = device_phase()
     if found is None:
@@ -1963,6 +2471,21 @@ def main(argv=None) -> int:
                  launches_from=f'{run}, not the main path', launches_by_path=train_k1),
             dict(k2_entry(train_k2[run], 0.0, k2_timing(dev)),
                  launches_from=f'{run}, not the main path', launches_by_path=train_k2)]
+    elif only in ('parallel', 'multicard'):
+        if only == 'parallel':
+            parallel_k1, parallel_k2 = phase10(dev, smi)
+            run = f'data partition b128 over 2 shards of {dev} (phase 10)'
+        else:
+            parallel_k1, parallel_k2 = multicard(smi)
+            run = f'data partition b128 over {torch.cuda.device_count()} cards (multicard)'
+        # No main path runs here: `launches` is the data partition's.
+        kernels = [
+            dict(k1_entry(parallel_k1[run], 0.0,
+                          k1_timing(dev, peaked_heads(128, 33, 8, dev),
+                                    DecodeConfig(min_pose_score=0.25))),
+                 launches_from=f'{run}, not the main path', launches_by_path=parallel_k1),
+            dict(k2_entry(parallel_k2[run], 0.0, k2_timing(dev)),
+                 launches_from=f'{run}, not the main path', launches_by_path=parallel_k2)]
     else:
         kernels = full_run(dev, smi)
     print(json.dumps({'kernels': kernels}))

@@ -7,22 +7,29 @@ ground-truth generator first; checkpoints (this package's own `torch.save`
 format, not the JAX package's orbax ones) resume automatically;
 `--eval_only` prints one JSON line of eval loss and OKS/mAP;
 `--export_artifact` exports the best checkpoint as a serving artifact.
-Data parallelism (`--num_devices` > 1, `--distributed`) is not ported yet
-(ROADMAP Queue 1 item 14).
+Data parallelism runs one process per device: `--num_devices N` starts N
+ranks on this host (NCCL on the cards, gloo with `--device cpu`), each
+running this CLI; `--distributed` joins a world from the environment
+(torchrun's variables, one process per card, any number of hosts). Rank 0
+writes the checkpoints, the log and the artifact.
 
     python -m posenet_tpu_torch.apps.train --model 50 --train_image_dir ./images_train \
-        --prepare_gt ./labels --allow_random_init [--device cpu]
+        --prepare_gt ./labels --allow_random_init [--device cpu] [--num_devices 2]
+    torchrun --nproc_per_node 4 -m posenet_tpu_torch.apps.train --distributed ...
 """
 
 import argparse
 import json
 import os
+import sys
 
 import torch
+import torch.distributed as dist
 
 from posenet_tpu_torch.apps import add_device_flag
 from posenet_tpu_torch.config import ModelConfig, TrainConfig
 from posenet_tpu_torch.models import model_factory
+from posenet_tpu_torch.parallel import mesh as mesh_lib
 from posenet_tpu_torch.training import train_step as ts
 from posenet_tpu_torch.training.dataset import PosenetDataset
 from posenet_tpu_torch.training.trainer import (MetricLogger, evaluate,
@@ -43,8 +50,9 @@ def parse_args(argv=None):
     parser.add_argument('--lr', type=float, default=1e-4)
     parser.add_argument('--num_epochs', type=int, default=100)
     parser.add_argument('--num_devices', type=int, default=0,
-                        help='data-parallel device count (0 = single device; '
-                             'more than 1 is not ported yet, ROADMAP item 14)')
+                        help='data-parallel device count (0 = single device; N '
+                             'starts N ranks here unless --distributed joins a '
+                             'world)')
     parser.add_argument('--image_size', type=int, default=513)
     parser.add_argument('--wandb', action='store_true')
     parser.add_argument('--prepare_gt', type=str, default='',
@@ -59,7 +67,9 @@ def parse_args(argv=None):
                              'keypoint channel swap)')
     parser.add_argument('--no_pose_metrics', action='store_true')
     parser.add_argument('--distributed', action='store_true',
-                        help='multi-host training: not ported yet (ROADMAP item 14)')
+                        help='join the torch.distributed world that the environment '
+                             'describes (torchrun: MASTER_ADDR, MASTER_PORT, '
+                             'WORLD_SIZE, RANK, LOCAL_RANK) and train as one rank')
     parser.add_argument('--visual_every', type=int, default=0,
                         help='dump predicted-heatmap pngs + keypoint '
                              'overlays under --output_dir every N epochs '
@@ -90,13 +100,23 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    backend = 'nccl' if torch.device(args.device).type == 'cuda' else 'gloo'
 
-    if args.distributed or args.num_devices > 1:
-        raise NotImplementedError(
-            '--distributed and --num_devices > 1 (data-parallel training) are not '
-            'ported yet (ROADMAP Queue 1 item 14, multi-device)')
+    if args.num_devices > 1 and not args.distributed and not dist.is_initialized():
+        model_factory.resolve_device(args.device)   # no card: raise here, not in N ranks
+        mesh_lib.launch(main, args.num_devices, args=(argv + ['--distributed'],),
+                        backend=backend)
+        return
+    lead = True
+    if args.distributed:
+        proc = mesh_lib.initialize_distributed(backend=backend)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        lead = proc == 0
+        if lead:
+            print(f'distributed: process {proc}/{world}')
 
-    if args.prepare_gt:
+    if args.prepare_gt and lead:
         from posenet_tpu_torch.training.ground_truth import prepare_ground_truth_data
         prepare_ground_truth_data(
             args.train_image_dir, args.prepare_gt,
@@ -107,6 +127,8 @@ def main(argv=None):
                 args.test_image_dir, args.prepare_gt,
                 keypoints_updated_dir=args.keypoint_dir,
                 annotation_format=args.gt_format)
+    if dist.is_initialized():
+        dist.barrier()   # every rank reads the ground truth rank 0 wrote
 
     cfg = TrainConfig(
         model_id=args.model, output_stride=args.output_stride,
@@ -141,21 +163,23 @@ def main(argv=None):
         restored = restore_checkpoint(cfg.checkpoint_dir, template)
         if restored is not None:
             params = restored.params
-            print(f'eval: restored checkpoint step {int(restored.step)} '
-                  f'from {cfg.checkpoint_dir}')
+            message = (f'eval: restored checkpoint step {int(restored.step)} '
+                       f'from {cfg.checkpoint_dir}')
         else:
-            print('eval: no checkpoint found, using loaded model weights')
+            message = 'eval: no checkpoint found, using loaded model weights'
         ds = test_ds if test_ds is not None else train_ds
         report = evaluate(ds, cfg, params, eval_pose_metrics=not args.no_pose_metrics,
                           device=args.device)
-        print(json.dumps(report))
+        if lead:
+            print(message)
+            print(json.dumps(report))
         return
 
     logger = MetricLogger(use_wandb=args.wandb)
     state = train(train_ds, test_ds, cfg, logger=logger, params=model.params,
                   eval_pose_metrics=not args.no_pose_metrics, device=args.device)
 
-    if args.export_artifact:
+    if args.export_artifact and lead:
         from posenet_tpu_torch.models.model_factory import PoseNet
         from posenet_tpu_torch.serving import save_serving_artifact
 

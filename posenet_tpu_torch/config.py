@@ -69,7 +69,9 @@ class TrainConfig:
     # `output_dir` (0 = never).
     output_dir: str = "./output"
     visual_every: int = 0
-    # Data parallelism is not ported yet: None or 1 (one device).
+    # Data-parallel ranks, one process per device (None: one device, or
+    # the world's size inside a torch.distributed world). train() starts
+    # them when the process is in no world.
     num_devices: Optional[int] = None
     seed: int = 0
     # Trunk compute dtype of the training forward. bfloat16 is mixed
@@ -79,10 +81,8 @@ class TrainConfig:
     compute_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        if self.num_devices not in (None, 1):
-            raise NotImplementedError(
-                f"num_devices={self.num_devices}: data-parallel training is not "
-                f"ported yet (ROADMAP Queue 1 item 14, multi-device)")
+        if self.num_devices is not None and self.num_devices < 1:
+            raise ValueError(f"num_devices must be None or >= 1, got {self.num_devices}")
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
                 f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype}")

@@ -133,8 +133,9 @@ def _greedy_accept(cand_scores, cand_kp, root_coords, all_scores, all_coords,
     valid = cand_scores > -0.5                 # top-K sentinel is -1
     kp_index = cand_kp.long()[:, None, :, None].expand(b, p, k, 2)
     # A device tensor: CUDA divides by a CPU scalar as a multiply by its
-    # reciprocal, which is not IEEE division.
-    n_kp = torch.tensor(float(NUM_KEYPOINTS), device=device)
+    # reciprocal, which is not IEEE division. Filled in on the device: a
+    # copy from the host would wait for the work queued before it.
+    n_kp = torch.full((), float(NUM_KEYPOINTS), device=device)
 
     pose_scores = torch.zeros((b, p), device=device)
     kp_scores = torch.zeros((b, p, NUM_KEYPOINTS), device=device)

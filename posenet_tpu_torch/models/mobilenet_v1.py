@@ -196,10 +196,12 @@ def cast_params(params: Dict[str, Any], dtype: torch.dtype,
     }
 
 
-def _conv_relu6(x, w, b, *, stride=1, dilation=1, groups=1):
+def _conv_relu6(x, w, b, *, stride=1, dilation=1, groups=1, pad_rows=True):
+    """Conv + bias + ReLU6 with torch-style symmetric padding; `pad_rows`
+    False pads the width only (the rows the padding would add are in `x`)."""
     pad = torch_same_padding(w.shape[-1], stride, dilation)
     y = F.conv2d(x, w.to(x.dtype), b.to(x.dtype), stride=stride,
-                 padding=pad, dilation=dilation, groups=groups)
+                 padding=(pad if pad_rows else 0, pad), dilation=dilation, groups=groups)
     return F.relu6(y)
 
 
@@ -222,6 +224,26 @@ def uses_sepconv(layer: Dict[str, Any], cfg: ModelConfig) -> bool:
             and layer['stride'] == 1 and layer['rate'] == 1)
 
 
+def run_layer(layer: Dict[str, Any], p: Dict[str, Any], x: torch.Tensor,
+              cfg: ModelConfig, row_halo: bool = False) -> torch.Tensor:
+    """One `stride_plan` layer on an NCHW (channels_last) tensor.
+
+    `row_halo`: `x` holds exactly the input rows the layer's output rows
+    read, rows beyond the image as zeros (a slab of a height-sharded
+    image, `parallel.spatial`), so that no row is padded: the convs pad
+    the width only, and the fused block, which pads every side, has its
+    first and last output rows cut."""
+    s, r = layer['stride'], layer['rate']
+    if layer['conv_type'] == 'input':
+        return _conv_relu6(x, p['w'], p['b'], stride=s, dilation=r, pad_rows=not row_halo)
+    if uses_sepconv(layer, cfg):
+        y = _sepconv_relu6(x, p)
+        return y[:, :, 1:-1] if row_halo else y
+    x = _conv_relu6(x, p['dw_w'], p['dw_b'], stride=s, dilation=r, groups=x.shape[1],
+                    pad_rows=not row_halo)
+    return _conv_relu6(x, p['pw_w'], p['pw_b'])
+
+
 def run_trunk(params: Dict[str, Any], x_nhwc: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """The 14-layer trunk: NHWC input -> NCHW (channels_last) features in
@@ -229,22 +251,14 @@ def run_trunk(params: Dict[str, Any], x_nhwc: torch.Tensor,
     x = x_nhwc.to(cfg.compute_dtype).permute(0, 3, 1, 2)
     plan = stride_plan(cfg.model_id, cfg.output_stride)
     for layer, p in zip(plan, params['backbone']):
-        s, r = layer['stride'], layer['rate']
-        if layer['conv_type'] == 'input':
-            x = _conv_relu6(x, p['w'], p['b'], stride=s, dilation=r)
-        elif uses_sepconv(layer, cfg):
-            x = _sepconv_relu6(x, p)
-        else:
-            x = _conv_relu6(x, p['dw_w'], p['dw_b'], stride=s, dilation=r,
-                            groups=x.shape[1])
-            x = _conv_relu6(x, p['pw_w'], p['pw_b'])
+        x = run_layer(layer, p, x, cfg)
     return x
 
 
-def run_heads(heads_params: Dict[str, Any],
-              feat: torch.Tensor) -> Dict[str, torch.Tensor]:
+def head_conv(heads_params: Dict[str, Any], feat: torch.Tensor) -> torch.Tensor:
     """All four 1x1 heads as ONE float32 conv over the concatenated 115
-    output channels, so the trunk features are read once.
+    output channels, so the trunk features are read once: (B, R, R', 115)
+    NHWC, the heads' channels in `HEAD_CHANNELS` order.
 
     bf16 features and kernels are upcast first: every bf16 value is exact
     in float32, so this is the float32-accumulated bf16 product the JAX
@@ -252,7 +266,13 @@ def run_heads(heads_params: Dict[str, Any],
     names = tuple(HEAD_CHANNELS)
     w_all = torch.cat([heads_params[n]['w'] for n in names]).float()
     b_all = torch.cat([heads_params[n]['b'] for n in names]).float()
-    all_heads = F.conv2d(feat.float(), w_all, b_all).permute(0, 2, 3, 1)
+    return F.conv2d(feat.float(), w_all, b_all).permute(0, 2, 3, 1)
+
+
+def split_heads(all_heads: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """`head_conv`'s 115 channels as the heads dict: the heatmap after its
+    sigmoid, and the logits, offsets and displacements as channel views of
+    `all_heads` (the decoder's tree walk reads them in place)."""
     c0 = HEAD_CHANNELS['heatmap']
     c1 = c0 + HEAD_CHANNELS['offset']
     c2 = c1 + HEAD_CHANNELS['displacement_fwd']
@@ -264,6 +284,12 @@ def run_heads(heads_params: Dict[str, Any],
         'displacement_fwd': all_heads[..., c1:c2],
         'displacement_bwd': all_heads[..., c2:],
     }
+
+
+def run_heads(heads_params: Dict[str, Any],
+              feat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The heads of the trunk features `feat`: `split_heads(head_conv(...))`."""
+    return split_heads(head_conv(heads_params, feat))
 
 
 def forward(params: Dict[str, Any], x_nhwc: torch.Tensor,

@@ -76,7 +76,7 @@ def traverse_all_candidates_reference(
     k = cand_scores.shape[1]
     # A device tensor, not a Python number: CUDA divides by a CPU scalar
     # as a multiply by its reciprocal, which is not IEEE division.
-    stride = torch.tensor(float(output_stride), device=cand_scores.device)
+    stride = torch.full((), float(output_stride), device=cand_scores.device)
     zero = torch.zeros_like(cand_scores)
 
     is_root = [cand_kp == j for j in range(NUM_KEYPOINTS)]

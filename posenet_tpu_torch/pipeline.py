@@ -4,8 +4,10 @@ The counterpart of `posenet_tpu.pipeline` on one device. A call queues the
 whole program on the device and returns `DecodedPoses` tensors there; the
 host waits only when the caller reads them. Two entries: `infer` takes RGB
 frames at the model resolution, `infer_raw` BGR frames at the source
-resolution, which it resizes on the device. Not ported yet: the mesh
-(data and spatial partition), the int8 trunk.
+resolution, which it resizes on the device. Over a mesh
+(`parallel.mesh.make_mesh`) the pipeline runs the data partition, one
+program per shard of the batch, or the spatial partition, the image
+height sharded (`parallel.spatial`). Not ported yet: the int8 trunk.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.decode import DecodedPoses, decode_batch
 from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.models.model_factory import PoseNet
+from posenet_tpu_torch.parallel import mesh as mesh_lib
+from posenet_tpu_torch.parallel import spatial
 from posenet_tpu_torch.preprocess import preprocess_on_device
 
 
@@ -26,8 +30,10 @@ def normalize(frames_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
     The scale is rounded to `dtype` before it multiplies, as the JAX
     package's weak-typed 2/255 is; in bf16 a Python float would multiply
-    unrounded and give other values for 111 of the 256 inputs."""
-    scale = torch.tensor(2.0 / 255.0, dtype=dtype, device=frames_u8.device)
+    unrounded and give other values for 111 of the 256 inputs. The scale
+    is filled in on the device: `torch.tensor(..., device=)` would copy it
+    from the host and wait for the device's queued work first."""
+    scale = torch.full((), 2.0 / 255.0, dtype=dtype, device=frames_u8.device)
     return frames_u8.to(dtype) * scale - 1.0
 
 
@@ -39,7 +45,8 @@ def to_device(frames_u8, device: torch.device) -> torch.Tensor:
     pageable memory would make the host wait until the stream reaches it,
     that is, until the device has finished the work queued before it, so a
     server could not queue batch N+1 while batch N runs. PyTorch's pinned
-    allocator keeps the staging buffer from reuse until the copy is done."""
+    allocator keeps the staging buffer from reuse until the copy is done.
+    A copy between two cards is queued in order with the work on both."""
     frames = torch.as_tensor(frames_u8)
     if frames.device == device:
         return frames
@@ -48,7 +55,7 @@ def to_device(frames_u8, device: torch.device) -> torch.Tensor:
             frames = torch.empty(frames.shape, dtype=frames.dtype,
                                  pin_memory=True).copy_(frames)
         return frames.to(device, non_blocking=True)
-    return frames.to(device)
+    return frames.to(device, non_blocking=device.type == frames.device.type == 'cuda')
 
 
 def infer(params: Dict[str, Any], frames_u8: torch.Tensor, cfg: ModelConfig,
@@ -81,6 +88,26 @@ def infer_raw(params: Dict[str, Any], frames_bgr_u8: torch.Tensor,
         heads['displacement_bwd'], cfg.output_stride, decode_cfg)
 
 
+def infer_spatial(replicas, frames_u8: torch.Tensor, cfg: ModelConfig,
+                  decode_cfg: DecodeConfig, devices) -> DecodedPoses:
+    """`infer` with the image height sharded over `devices` (`replicas[i]`
+    the cast parameters on `devices[i]`, frames on `devices[0]`): the trunk
+    and heads by `parallel.spatial.forward`, the decode of the gathered
+    heads on `devices[0]`."""
+    heads = mobilenet_v1.split_heads(spatial.forward(
+        replicas, normalize(frames_u8, cfg.compute_dtype), cfg, devices))
+    return decode_batch(
+        heads['heatmap'], heads['offset'], heads['displacement_fwd'],
+        heads['displacement_bwd'], cfg.output_stride, decode_cfg)
+
+
+def gather(outputs, device: torch.device, n: int) -> DecodedPoses:
+    """The shards' DecodedPoses concatenated on `device`, the first `n`
+    items kept (the rest pad an uneven batch)."""
+    return DecodedPoses(*(torch.cat([t.to(device, non_blocking=True) for t in field])[:n]
+                          for field in zip(*outputs)))
+
+
 class PoseNetPipeline:
     """The fused program on one device.
 
@@ -97,21 +124,54 @@ class PoseNetPipeline:
     def __init__(self, model: PoseNet,
                  decode_cfg: DecodeConfig = DecodeConfig(min_pose_score=0.25),
                  device: torch.device | str | None = None,
-                 device_resize_to: Optional[Tuple[int, int]] = None):
+                 device_resize_to: Optional[Tuple[int, int]] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None,
+                 partition: str = 'data'):
         """`device`: where the program runs (None: the model's device). The
         kernels are cast once here to the model's compute dtype.
 
         `device_resize_to`: (th, tw) stride-valid processing resolution.
         When set, a call takes uint8 BGR frames at the SOURCE resolution and
         the program flips them to RGB, resizes and normalizes them on the
-        device (`infer_raw`). Decoded coordinates are at (th, tw)."""
+        device (`infer_raw`). Decoded coordinates are at (th, tw).
+
+        `mesh`: a local mesh (`make_mesh`, one process) to run over, in
+        place of `device`; the parameters are cast once and replicated on
+        its devices, and outputs come back on its first device.
+        `partition` spreads the work:
+          'data': the batch. An uneven batch is zero-padded to a multiple
+            of the mesh and the outputs sliced back; each shard runs the
+            whole program on its device (K2 in its bf16 trunk, K1 in its
+            decode), queued without waiting on the host.
+          'spatial': the image height (`parallel.spatial`), for one
+            frame's latency over several devices; the decode runs on the
+            gathered heads. Not with `device_resize_to`."""
+        if partition not in ('data', 'spatial'):
+            raise ValueError(f"partition must be 'data' or 'spatial', got {partition!r}")
         self.cfg = model.cfg
         self.decode_cfg = decode_cfg
-        self.device = torch.device(device) if device is not None else model.device
-        self.params = mobilenet_v1.cast_params(
-            model.params, model.cfg.compute_dtype, self.device)
         self.device_resize_to = (tuple(device_resize_to)
                                  if device_resize_to is not None else None)
+        self.mesh = mesh
+        self.partition = partition
+        if mesh is None:
+            self.device = torch.device(device) if device is not None else model.device
+            self.params = mobilenet_v1.cast_params(
+                model.params, model.cfg.compute_dtype, self.device)
+            return
+        if device is not None:
+            raise ValueError('give the pipeline a device or a mesh, not both')
+        if mesh.group is not None:
+            raise ValueError('a pipeline runs over the devices of one process: give it a '
+                             'local mesh (make_mesh outside a torch.distributed world)')
+        if partition == 'spatial' and self.device_resize_to is not None:
+            raise NotImplementedError(
+                "device_resize_to + spatial partition: the height shards are rows "
+                "of the input at the processing resolution; use partition='data'")
+        self.device = mesh.devices[0]
+        self.replicas = mesh_lib.replicate(mobilenet_v1.cast_params(
+            model.params, model.cfg.compute_dtype, self.device), mesh)
+        self.params = self.replicas[0]
 
     def __call__(self, frames_u8) -> DecodedPoses:
         """Run forward + decode on a uint8 frame batch (B, H, W, 3). Frames
@@ -126,14 +186,24 @@ class PoseNetPipeline:
             device.
         Frames in the wrong order raise no error but lower the pose scores.
         """
-        frames = to_device(frames_u8, self.device)
+        frames = torch.as_tensor(frames_u8)
         if frames.dtype != torch.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
             raise ValueError(f'expected (B, H, W, 3) uint8 frames, got '
                              f'{tuple(frames.shape)} {frames.dtype}')
+        if self.mesh is None:
+            return self._run(self.params, to_device(frames, self.device))
+        if self.partition == 'spatial':
+            return infer_spatial(self.replicas, to_device(frames, self.device), self.cfg,
+                                 self.decode_cfg, self.mesh.devices)
+        shards = mesh_lib.shard_batch(mesh_lib.pad_batch(frames, self.mesh), self.mesh)
+        return gather([self._run(p, x) for p, x in zip(self.replicas, shards)],
+                      self.device, frames.shape[0])
+
+    def _run(self, params, frames: torch.Tensor) -> DecodedPoses:
         if self.device_resize_to is not None:
-            return infer_raw(self.params, frames, self.device_resize_to, self.cfg,
+            return infer_raw(params, frames, self.device_resize_to, self.cfg,
                              self.decode_cfg)
-        return infer(self.params, frames, self.cfg, self.decode_cfg)
+        return infer(params, frames, self.cfg, self.decode_cfg)
 
     def warmup(self, input_hw: Tuple[int, int], batch: int = 1):
         """Run one batch of zeros (builds the CUDA kernels on first use) and

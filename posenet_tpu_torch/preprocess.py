@@ -111,5 +111,5 @@ def preprocess_on_device(frame_bgr_u8: torch.Tensor,
     x = F.interpolate(x, size=tuple(target_hw), mode='bilinear',
                       align_corners=False, antialias=False)
     x = x.permute(0, 2, 3, 1).contiguous()
-    scale = torch.tensor(2.0 / 255.0, dtype=torch.float32, device=x.device)
+    scale = torch.full((), 2.0 / 255.0, dtype=torch.float32, device=x.device)   # no host copy
     return x * scale - 1.0

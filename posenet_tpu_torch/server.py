@@ -127,15 +127,20 @@ class LivePipelineBackend:
     so PoseServer can serve either. No export step: it serves the model's
     current weights, through K1 and K2 on the card.
 
-    `num_devices` of None or 1 serves on the model's device; more is not
-    ported yet (ROADMAP Queue 1 item 14, multi-device)."""
+    `num_devices=N` serves each batch over N devices, the pipeline's data
+    partition: `devices` (N of them; a device may repeat), or else the
+    first N devices of the model's type, which must exist (the cards, or
+    the one CPU). N must divide every served batch size. None serves on the
+    model's device without a mesh."""
 
     def __init__(self, model, *,
                  decode_cfg=None,
                  input_hw: Tuple[int, int] = (513, 513),
                  batch_sizes: Sequence[int] = (1, 8),
-                 num_devices: Optional[int] = None):
+                 num_devices: Optional[int] = None,
+                 devices: Optional[Sequence] = None):
         from posenet_tpu_torch.config import DecodeConfig
+        from posenet_tpu_torch.parallel.mesh import make_mesh
         from posenet_tpu_torch.pipeline import PoseNetPipeline
         from posenet_tpu_torch.serving import _validate_input_hw
 
@@ -146,11 +151,16 @@ class LivePipelineBackend:
         self.batch_sizes = sorted(set(int(b) for b in batch_sizes))
         if not self.batch_sizes or self.batch_sizes[0] < 1:
             raise ValueError(f"bad batch_sizes {batch_sizes}")
-        if num_devices is not None and int(num_devices) != 1:
-            raise NotImplementedError(
-                f"num_devices={num_devices}: data-parallel serving is not ported "
-                f"yet (ROADMAP Queue 1 item 14, multi-device)")
-        self._pipe = PoseNetPipeline(model, decode_cfg)
+        mesh = None
+        if num_devices is not None or devices is not None:
+            mesh = make_mesh(num_devices, devices=devices, device_type=model.device.type)
+            n = len(mesh.devices)
+            bad = [b for b in self.batch_sizes if b % n]
+            if bad:
+                raise ValueError(
+                    f"num_devices={n} must divide every served "
+                    f"batch size; got {bad}")
+        self._pipe = PoseNetPipeline(model, decode_cfg, mesh=mesh)
         self.device = self._pipe.device
         self.meta = {
             "backend": "live-pipeline",
@@ -158,7 +168,7 @@ class LivePipelineBackend:
             "output_stride": model.cfg.output_stride,
             "input_hw": list(self.input_hw),
             "batch_sizes": self.batch_sizes,
-            "num_devices": 1,
+            "num_devices": 1 if mesh is None else len(mesh.devices),
             "decode": dataclasses.asdict(decode_cfg),
         }
 
@@ -537,7 +547,8 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--min_pose_score", type=float, default=0.25,
                    help="live mode: decode min pose score")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="live mode: not ported beyond 1 (ROADMAP item 14)")
+                   help="live mode: serve each batch over the first N cards "
+                        "(data partition; N must divide every batch size)")
     p.add_argument("--allow_random_init", action="store_true",
                    help="live mode: random weights if the checkpoint is missing")
     p.add_argument("--host", default="127.0.0.1")

@@ -24,6 +24,10 @@ Design notes:
   imports them). A `cpu` program holds only aten ops (the plain versions).
 - The exported program returns `DecodedPoses.as_tuple()`: `torch.export`
   saves no NamedTuple; the loader rebuilds `DecodedPoses`.
+- Data parallel (`data_parallel_devices=N`): each program is exported at
+  the SHARD's batch, B / N for a served batch B, and the loader splits a
+  batch over its N devices, runs one copy of the program on each and
+  gathers the poses on the first (the pipeline's data partition).
 
 Artifact layout (a zip, conventional suffix `.posenet`):
     meta.json                    format, version, model + decode config, shapes
@@ -47,7 +51,8 @@ from posenet_tpu_torch.config import DecodeConfig, ModelConfig, TrainConfig
 from posenet_tpu_torch.decode import DecodedPoses
 from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.models.model_factory import PoseNet, resolve_device
-from posenet_tpu_torch.pipeline import infer, to_device
+from posenet_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from posenet_tpu_torch.pipeline import gather, infer, to_device
 
 # `format` tells this package's artifacts from the JAX package's, whose
 # meta.json has no such key.
@@ -55,7 +60,11 @@ FORMAT = 'posenet_tpu_torch.export'
 # 2: the tree walk's op takes the heads as four row tensors (scores,
 # offsets, dfwd, dbwd) where version 1 took three packed tables, so a
 # version-1 `cuda` program cannot run here and must be exported again.
-FORMAT_VERSION = 2
+# 3: `data_parallel_devices` may be set, and then a program runs on one
+# shard of the batch (a version-2 loader would feed it the whole batch).
+# Version 2 artifacts are version 3 ones without it.
+FORMAT_VERSION = 3
+_READABLE_VERSIONS = (2, 3)
 PLATFORMS = ('cuda', 'cpu')
 
 
@@ -104,22 +113,32 @@ def save_serving_artifact(
     device, so 'cuda' (the default) needs one, and raises without. Returns
     the metadata dict written to the artifact. The artifact is written to
     a temporary file and renamed, so a failed export leaves nothing at
-    `path`."""
+    `path`.
+
+    `data_parallel_devices=N` records N: every batch size must divide by
+    it, each program is exported at B / N, and the loader runs a batch
+    over N devices (`ServingArtifact`)."""
     import posenet_tpu_torch
 
-    if data_parallel_devices is not None and int(data_parallel_devices) != 1:
-        raise NotImplementedError(
-            'data-parallel serving artifacts are not ported yet (ROADMAP '
-            'Queue 1 item 14, multi-device)')
     cfg = model.cfg
     _validate_input_hw(tuple(input_hw), cfg.output_stride)
     platforms = list(platforms)
     if not platforms:
         raise ValueError('platforms names no platform to export for')
-    devices = {p: _platform_device(p) for p in platforms}
     batches = sorted(set(int(b) for b in batch_sizes))
     if not batches or batches[0] < 1:
         raise ValueError(f'bad batch_sizes {batch_sizes}')
+    n = None
+    if data_parallel_devices is not None:
+        n = int(data_parallel_devices)
+        if n < 1:
+            raise ValueError(f"data_parallel_devices must be >= 1, got {n}")
+        bad = [b for b in batches if b % n]
+        if bad:
+            raise ValueError(
+                f"data_parallel_devices={n} must divide every batch size; "
+                f"got {bad}")
+    devices = {p: _platform_device(p) for p in platforms}
 
     meta = {
         "format": FORMAT,
@@ -136,7 +155,7 @@ def save_serving_artifact(
         "torch_version": torch.__version__,
         "framework_version": posenet_tpu_torch.__version__,
         "outputs": list(DecodedPoses._fields),
-        "data_parallel_devices": None,
+        "data_parallel_devices": n,
     }
     # Write-to-temp + atomic rename: ZipFile.__exit__ finalizes the central
     # directory even on an exception, so writing `path` directly would leave
@@ -149,8 +168,8 @@ def save_serving_artifact(
                 program = _Program(mobilenet_v1.cast_params(
                     model.params, cfg.compute_dtype, device), cfg, decode_cfg)
                 for b in batches:
-                    example = torch.zeros((b, *meta['input_hw'], 3), dtype=torch.uint8,
-                                          device=device)
+                    example = torch.zeros((b // (n or 1), *meta['input_hw'], 3),
+                                          dtype=torch.uint8, device=device)
                     exported = torch.export.export(program, (example,), strict=False)
                     blob = io.BytesIO()
                     torch.export.save(exported, blob)
@@ -169,9 +188,15 @@ class ServingArtifact:
 
     `device`: where the programs run: the card unless the caller names the
     CPU; 'cuda' raises on a host without a CUDA device. Programs load once
-    per batch size, at first use, and are cached."""
+    per batch size, at first use, and are cached.
 
-    def __init__(self, path: str, device: torch.device | str = 'cuda'):
+    A data-parallel artifact (`data_parallel_devices=N`) runs over N
+    devices: `devices`, a list of N (a device may repeat), or else the
+    first N cards, which must exist. Its `device` is the first, where the
+    poses come back."""
+
+    def __init__(self, path: str, device: torch.device | str = 'cuda',
+                 devices: Optional[Sequence] = None):
         self.path = path
         with zipfile.ZipFile(path) as zf:
             self.meta = json.loads(zf.read('meta.json'))
@@ -182,16 +207,39 @@ class ServingArtifact:
                     else '')
             raise ValueError(f'{path} is not a posenet_tpu_torch serving artifact: format '
                              f'{fmt!r}, expected {FORMAT!r}{hint}')
-        if self.meta.get('format_version') != FORMAT_VERSION:
+        if self.meta.get('format_version') not in _READABLE_VERSIONS:
             raise ValueError(
                 f"artifact {path} has format_version {self.meta.get('format_version')}; "
-                f"this loader reads {FORMAT_VERSION}")
+                f"this loader reads versions "
+                f"{' and '.join(map(str, _READABLE_VERSIONS))}")
         self.batch_sizes = list(self.meta['batch_sizes'])
         self.input_hw = tuple(self.meta['input_hw'])
-        self.device = _platform_device(torch.device(device).type)
-        self._programs: Dict[int, nn.Module] = {}
+        self.data_parallel_devices = self.meta.get('data_parallel_devices')
+        self.mesh = None
+        if self.data_parallel_devices is None:
+            if devices is not None:
+                raise ValueError(f'{path} is not a data-parallel artifact: it runs on one '
+                                 f'device, not on {list(devices)}')
+            self.device = _platform_device(torch.device(device).type)
+        else:
+            n = self.data_parallel_devices
+            if devices is not None and len(devices) != n:
+                raise ValueError(f'artifact {path} (exported data-parallel) needs {n} '
+                                 f'devices, got {list(devices)}')
+            self.mesh = make_mesh(n, devices=devices,
+                                  device_type=torch.device(device).type)
+            if len({d.type for d in self.mesh.devices}) != 1:
+                raise ValueError(f'devices of two platforms: {list(self.mesh.devices)}')
+            self.device = self.mesh.devices[0]
+        self._programs: Dict[int, list] = {}
 
     def _program(self, batch: int) -> nn.Module:
+        """The program for `batch` on the artifact's device (the first
+        device of a data-parallel artifact)."""
+        return self._copies(batch)[0]
+
+    def _copies(self, batch: int) -> list:
+        """The program for `batch`, one copy for each device it runs on."""
         if batch not in self._programs:
             if batch not in self.batch_sizes:
                 raise ValueError(
@@ -200,7 +248,12 @@ class ServingArtifact:
                     f"including {batch})")
             with zipfile.ZipFile(self.path) as zf:
                 blob = zf.read(f'program_b{batch}_{self.device.type}.pt2')
-            self._programs[batch] = torch.export.load(io.BytesIO(blob)).module()
+            devices = (self.device,) if self.mesh is None else self.mesh.devices
+            copies = {}
+            for d in devices:
+                if d not in copies:
+                    copies[d] = _load_program(blob, d)
+            self._programs[batch] = [copies[d] for d in devices]
         return self._programs[batch]
 
     def __call__(self, frames_u8) -> DecodedPoses:
@@ -224,12 +277,29 @@ class ServingArtifact:
                 f"artifact {self.path} was exported for platforms "
                 f"{self.meta['platforms']} but runs on '{platform}' here; re-export "
                 f"with --platforms including it")
-        program = self._program(frames.shape[0])   # batch validated after the rest
-        return DecodedPoses.from_tuple(program(to_device(frames, self.device)))
+        programs = self._copies(frames.shape[0])   # batch validated after the rest
+        if self.mesh is None:
+            return DecodedPoses.from_tuple(programs[0](to_device(frames, self.device)))
+        shards = shard_batch(frames, self.mesh)
+        return gather([DecodedPoses.from_tuple(p(x)) for p, x in zip(programs, shards)],
+                      self.device, frames.shape[0])
 
 
-def load_serving_artifact(path: str, device: torch.device | str = 'cuda') -> ServingArtifact:
-    return ServingArtifact(path, device)
+def _load_program(blob: bytes, device: torch.device) -> nn.Module:
+    """A saved program as a module on `device`: moved there when it was
+    exported on another device (a data-parallel artifact's copies)."""
+    exported = torch.export.load(io.BytesIO(blob))
+    saved = {t.device for t in list(exported.state_dict.values())
+             + list(exported.constants.values()) if isinstance(t, torch.Tensor)}
+    if saved != {device}:
+        from torch.export.passes import move_to_device_pass
+        exported = move_to_device_pass(exported, device)
+    return exported.module()
+
+
+def load_serving_artifact(path: str, device: torch.device | str = 'cuda',
+                          devices: Optional[Sequence] = None) -> ServingArtifact:
+    return ServingArtifact(path, device, devices)
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -255,7 +325,8 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument('--output', type=str, required=True,
                    help='artifact path (conventionally *.posenet)')
     p.add_argument('--data_parallel_devices', type=int, default=None,
-                   help='not ported yet (ROADMAP item 14)')
+                   help='export for serving each batch over N devices (N must '
+                        'divide every batch size); the loader needs N devices')
     p.add_argument('--from_checkpoint', type=str, default='',
                    help='checkpoint dir written by posenet-train-torch: export '
                         'its latest (= best) step instead of ./_models weights. '

@@ -99,6 +99,20 @@ class PosenetDataset:
     def __len__(self) -> int:
         return len(self.files)
 
+    def __getstate__(self):
+        """What a data-parallel rank's process receives: the dataset
+        without its lock, and its image cache emptied (each process fills
+        its own)."""
+        state = dict(self.__dict__)
+        del state['_cache_lock']
+        if state['_cache'] is not None:
+            state['_cache'] = {}
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._cache_lock = threading.Lock()
+
     def _load_u8(self, idx: int) -> np.ndarray:
         """Decoded + resized RGB uint8 frame (cached after first access)."""
         import cv2

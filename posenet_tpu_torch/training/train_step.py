@@ -12,18 +12,29 @@ trunk runs in bf16, through the fused sepconv kernel on its stride-1
 rate-1 layers, cast once from the float32 master tensors
 (`compute_params`); the heads, the loss and Adam's state stay float32.
 
-Data parallelism is not ported yet (ROADMAP Queue 1 item 14): no mesh.
+Data parallelism runs one process per device (a world mesh,
+`parallel.mesh.make_mesh`): every rank is handed the same global batch and
+takes its slice. The step's loss is the GLOBAL batch's weighted mean, as
+the JAX package's step over a mesh computes it: each rank divides its
+items' weighted loss sum by the global batch's weight sum, and the
+gradients and metrics are summed over the ranks (one all-reduce a step).
+DistributedDataParallel would average the ranks' own means instead, which
+differs wherever the zero-weight pads of `pad_batch_to` fall unevenly over
+the ranks. Adam then steps identically on every rank, so the parameters
+stay replicated bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from posenet_tpu_torch.config import ModelConfig, TrainConfig
 from posenet_tpu_torch.models import mobilenet_v1
+from posenet_tpu_torch.parallel import mesh as mesh_lib
 from posenet_tpu_torch.pipeline import to_device
 from posenet_tpu_torch.training.loss import batched_loss
 
@@ -88,14 +99,18 @@ def compute_params(params, model_cfg: ModelConfig):
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], model_cfg: ModelConfig,
-            train_cfg: TrainConfig, reduce: bool = True
+            train_cfg: TrainConfig, reduce: bool = True,
+            weight_total: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {'image': (B,H,W,3) float in [-1,1], 'keypoints': (B,P,17,2),
     optionally 'weights': (B,) per-item loss weights (1 real / 0 padding,
     see pad_batch_to)}, tensors on the device of `params`.
 
     reduce=False returns per-item (B,) metric vectors instead of batch
-    means. Train, eval and per-item eval all route through here."""
+    means. `weight_total`: the weighted mean's denominator, when `batch`
+    is one rank's shard of a global batch (the global weight sum; default
+    the batch's own). Train, eval and per-item eval all route through
+    here."""
     out = mobilenet_v1.forward(params, batch['image'], model_cfg,
                                stop_trunk_gradient=train_cfg.heads_only)
     metrics = batched_loss(
@@ -111,41 +126,79 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], model_cfg: ModelConfig,
     else:
         # Weighted mean over REAL items only: with {0,1} weights this is
         # the unpadded batch's mean, and so are its gradients.
-        denom = w.sum()
+        denom = w.sum() if weight_total is None else weight_total
         metrics = {k: (v * w).sum() / denom for k, v in metrics.items()}
     return metrics['loss'], metrics
 
 
+def all_reduce_sum(tensors: List[torch.Tensor], group) -> None:
+    """Sum each tensor over the ranks of `group`, in place, with one
+    collective over their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+def _summed_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The metrics, detached; with `group`, summed over its ranks."""
+    if group is None:
+        return {k: v.detach() for k, v in metrics.items()}
+    values = torch.stack([v.detach() for v in metrics.values()])
+    all_reduce_sum([values], group)
+    return dict(zip(metrics, values.unbind()))
+
+
 def train_step(state: TrainState, batch, model_cfg: ModelConfig,
-               train_cfg: TrainConfig, run_params=None):
+               train_cfg: TrainConfig, run_params=None,
+               weight_total: Optional[torch.Tensor] = None, group=None):
     """One step on a batch of tensors (`_step_batch`). `run_params`: what
     the forward runs on, `compute_params(state.params, ...)` (default
-    `state.params`). The gradients stay on the trainable tensors' `.grad`
-    until the next step. Returns the state, with its tensors updated in
-    place, and the batch's metrics as detached tensors."""
+    `state.params`). With `group`, `batch` is this rank's shard of a
+    global batch whose weight sum is `weight_total`: the gradients and the
+    metrics are summed over the group before Adam steps. The gradients stay
+    on the trainable tensors' `.grad` until the next step. Returns the
+    state, with its tensors updated in place, and the (global) batch's
+    metrics as detached tensors."""
     run_params = state.params if run_params is None else run_params
     state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = loss_fn(run_params, batch, model_cfg, train_cfg)
+    loss, metrics = loss_fn(run_params, batch, model_cfg, train_cfg,
+                            weight_total=weight_total)
     loss.backward()
+    if group is not None:
+        trained = [t for g in state.optimizer.param_groups for t in g['params']]
+        for t in trained:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        all_reduce_sum([t.grad for t in trained], group)
+    metrics = _summed_metrics(metrics, group)
     state.optimizer.step()
-    return (TrainState(state.params, state.optimizer, state.step + 1),
-            {k: v.detach() for k, v in metrics.items()})
+    return TrainState(state.params, state.optimizer, state.step + 1), metrics
 
 
-def eval_step(params, batch, model_cfg: ModelConfig, train_cfg: TrainConfig):
+def eval_step(params, batch, model_cfg: ModelConfig, train_cfg: TrainConfig,
+              weight_total: Optional[torch.Tensor] = None, group=None):
     with torch.no_grad():
-        _, metrics = loss_fn(params, batch, model_cfg, train_cfg)
-    return metrics
+        _, metrics = loss_fn(params, batch, model_cfg, train_cfg,
+                             weight_total=weight_total)
+    return _summed_metrics(metrics, group)
 
 
 def eval_step_per_item(params, batch, model_cfg: ModelConfig,
-                       train_cfg: TrainConfig):
+                       train_cfg: TrainConfig, weight_total=None, group=None):
     """Per-item (B,) metric vectors, no batch mean: trainer.evaluate()
     slices off wrap-padding duplicates and weights partial batches by their
-    true size, so that its eval loss is an exact per-image mean."""
+    true size, so that its eval loss is an exact per-image mean. With
+    `group`, the ranks' shards are gathered in rank order: the global
+    batch's vectors."""
     with torch.no_grad():
         _, metrics = loss_fn(params, batch, model_cfg, train_cfg, reduce=False)
-    return metrics
+    if group is None:
+        return metrics
+    values = torch.stack(list(metrics.values()))
+    parts = [torch.empty_like(values) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, values, group=group)
+    return dict(zip(metrics, torch.cat(parts, dim=1).unbind()))
 
 
 def init_train_state(params, cfg: TrainConfig,
@@ -172,6 +225,19 @@ def _step_batch(batch, device: torch.device):
     out['weights'] = (torch.ones(out['image'].shape[0], device=device)
                       if w is None else to_device(w, device))
     return out
+
+
+def _shard_step_batch(batch, device: torch.device, mesh: mesh_lib.Mesh):
+    """This rank's shard of a global batch as `_step_batch` gives it,
+    and the global batch's weight sum (on `device`). Only the shard's
+    images are uploaded."""
+    w = batch.get('weights')
+    b = batch['image'].shape[0]
+    weights = torch.ones(b, device=device) if w is None else to_device(w, device)
+    ((lo, hi),) = mesh_lib.shard_bounds(b, mesh)
+    out = {k: to_device(batch[k][lo:hi], device) for k in _STEP_KEYS}
+    out['weights'] = weights[lo:hi]
+    return out, weights.sum()
 
 
 def pad_batch_to(batch, n: int):
@@ -207,30 +273,54 @@ class _RunParams:
         return {'backbone': self._trunk, 'heads': params['heads']}
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
+def _check_mesh(mesh: Optional[mesh_lib.Mesh]):
+    if mesh is not None and len(mesh.devices) != 1:
+        raise ValueError(f'training runs one process per device: a training mesh holds '
+                         f'this rank\'s one device, got {list(mesh.devices)} (start ranks '
+                         f'with TrainConfig.num_devices, posenet-train-torch --num_devices '
+                         f'or torchrun)')
+
+
+def _batch_on(batch, device: torch.device, mesh: Optional[mesh_lib.Mesh]):
+    """(the step's tensors, the kwargs that make them one rank's shard)."""
+    if mesh is None:
+        return _step_batch(batch, device), {}
+    shard, total = _shard_step_batch(batch, device, mesh)
+    return shard, {'weight_total': total, 'group': mesh.group}
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                    mesh: Optional[mesh_lib.Mesh] = None):
     """The step as a callable (state, batch) -> (state, metrics), on numpy
-    or tensor batches carrying at least 'image' and 'keypoints'."""
+    or tensor batches carrying at least 'image' and 'keypoints'. With a
+    world mesh, every rank calls it with the same global batch, whose size
+    must divide over the mesh (`pad_batch_to` pads it with zero weights);
+    each rank computes its slice and the step is the global batch's."""
     if model_cfg.compute_dtype != torch.float32 and not train_cfg.heads_only:
         raise ValueError(
             "mixed-precision training (compute_dtype=bfloat16) requires "
             "heads_only=True: full fine-tuning would differentiate through the "
             "bf16 trunk, whose fused sepconv kernel has no backward")
+    _check_mesh(mesh)
     run = _RunParams(model_cfg)
 
     def step(state: TrainState, batch):
-        return train_step(state, _step_batch(batch, params_device(state.params)),
-                          model_cfg, train_cfg, run_params=run(state.params))
+        tensors, shard = _batch_on(batch, params_device(state.params), mesh)
+        return train_step(state, tensors, model_cfg, train_cfg,
+                          run_params=run(state.params), **shard)
     return step
 
 
 def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                   per_item: bool = False):
+                   mesh: Optional[mesh_lib.Mesh] = None, per_item: bool = False):
     """The eval step as a callable (params, batch) -> metrics; `per_item`
-    returns (B,) metric vectors instead of batch means."""
+    returns (B,) metric vectors instead of batch means. With a world mesh,
+    as `make_train_step`: the global batch's metrics on every rank."""
+    _check_mesh(mesh)
     fn = eval_step_per_item if per_item else eval_step
     run = _RunParams(model_cfg)
 
     def evaluate(params, batch):
-        return fn(run(params), _step_batch(batch, params_device(params)),
-                  model_cfg, train_cfg)
+        tensors, shard = _batch_on(batch, params_device(params), mesh)
+        return fn(run(params), tensors, model_cfg, train_cfg, **shard)
     return evaluate

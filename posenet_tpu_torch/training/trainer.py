@@ -11,6 +11,14 @@ orbax checkpoints are not read.
 Everything runs on the card unless the caller names the CPU
 (`device='cpu'`); without a card the default raises. The eval decode is
 `decode_batch`, whose tree walk is the CUDA kernel on the card.
+
+Data parallelism (`TrainConfig.num_devices`) runs one process per device:
+`train()` outside a `torch.distributed` world starts the ranks itself
+(`parallel.mesh.launch`) and returns rank 0's final state; inside a world
+(torchrun, `posenet-train-torch --distributed`) it runs as one rank. Every
+rank iterates the same seeded batches and takes its slice of each; epoch
+remainders are padded to the batch size with zero-weight items. Only rank
+0 writes checkpoints, logs and visual dumps.
 """
 
 from __future__ import annotations
@@ -18,17 +26,20 @@ from __future__ import annotations
 import json
 import os
 import re
+import tempfile
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from posenet_tpu_torch.apps import full_float32
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig, TrainConfig
 from posenet_tpu_torch.decode import decode_batch
 from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.models.model_factory import resolve_device
+from posenet_tpu_torch.parallel import mesh as mesh_lib
 from posenet_tpu_torch.pipeline import to_device
 from posenet_tpu_torch.training import metrics as metrics_lib
 from posenet_tpu_torch.training import train_step as ts
@@ -200,24 +211,62 @@ def _decode(params, images, model_cfg: ModelConfig, decode_cfg: DecodeConfig):
 
 
 def evaluate_poses(params, batch, model_cfg: ModelConfig,
-                   decode_cfg: DecodeConfig, n_real: int = None):
+                   decode_cfg: DecodeConfig, n_real: int = None,
+                   mesh: Optional[mesh_lib.Mesh] = None):
     """Decode predictions for a batch on the params' device and score them
     against GT keypoints on the host (Hungarian matching, OKS, mAP).
 
     `n_real` scores only the first n images: wrap-padded batches carry
-    duplicates in the trailing slots. Returns (mean OKS, mean mAP,
-    n_scored), see score_decoded_poses."""
-    _, decoded = _decode(params, batch['image'], model_cfg, decode_cfg)
-    sl = slice(None) if n_real is None else slice(n_real)
-    return score_decoded_poses(
+    duplicates in the trailing slots. With a world mesh each rank decodes
+    and scores its slice of the batch (zero-padded to divide), and the
+    scored counts and sums are added over the ranks. Returns (mean OKS,
+    mean mAP, n_scored), see score_decoded_poses."""
+    n_real = batch['image'].shape[0] if n_real is None else n_real
+    images, keypoints, lo = batch['image'], np.asarray(batch['keypoints']), 0
+    if mesh is not None:
+        images = mesh_lib.pad_batch(np.asarray(images), mesh)
+        ((lo, hi),) = mesh_lib.shard_bounds(images.shape[0], mesh)
+        images, keypoints = images[lo:hi], keypoints[lo:hi]
+    _, decoded = _decode(params, images, model_cfg, decode_cfg)
+    sl = slice(max(0, n_real - lo))
+    oks, ap, scored = score_decoded_poses(
         decoded.keypoint_coords.cpu().numpy()[sl],
         decoded.pose_scores.cpu().numpy()[sl],
-        np.asarray(batch['keypoints'])[sl], model_cfg.output_stride)
+        keypoints[sl], model_cfg.output_stride)
+    if mesh is None:
+        return oks, ap, scored
+    sums = torch.tensor([oks * scored, ap * scored, scored], dtype=torch.float64,
+                        device=mesh.devices[0])
+    dist.all_reduce(sums, group=mesh.group)
+    oks_sum, ap_sum, scored = sums.tolist()
+    scored = int(scored)
+    return (oks_sum / scored if scored else 0.0, ap_sum / scored if scored else 0.0,
+            scored)
 
 
 def _model_cfg(train_cfg: TrainConfig) -> ModelConfig:
     return ModelConfig(model_id=train_cfg.model_id, output_stride=train_cfg.output_stride,
                        compute_dtype=train_cfg.compute_dtype)
+
+
+def train_mesh(train_cfg: TrainConfig, device: torch.device) -> Optional[mesh_lib.Mesh]:
+    """The world mesh of a data-parallel run, this rank's device of
+    `device`'s type on it; None on one device, outside a world. Raises for
+    `num_devices` > 1 outside a world (`train()` starts the ranks itself),
+    or a batch size that does not divide over the ranks."""
+    n = train_cfg.num_devices
+    if not dist.is_initialized():
+        if n not in (None, 1):
+            raise ValueError(
+                f'num_devices={n} runs {n} processes: train() starts them outside a '
+                f'torch.distributed world; otherwise run under posenet-train-torch '
+                f'--num_devices {n} or torchrun')
+        return None
+    mesh = mesh_lib.make_mesh(n, devices=[mesh_lib.local_device(device)])
+    if train_cfg.batch_size % mesh.size:
+        raise ValueError(f'batch_size {train_cfg.batch_size} does not divide over '
+                         f'{mesh.size} data-parallel ranks')
+    return mesh
 
 
 def evaluate(dataset: PosenetDataset, train_cfg: TrainConfig, params,
@@ -226,15 +275,20 @@ def evaluate(dataset: PosenetDataset, train_cfg: TrainConfig, params,
     """Standalone evaluation: loss + OKS/mAP over a dataset, no training.
 
     The eval path the training loop runs per epoch, for `--eval_only` and
-    notebooks, on `device` (see `resolve_device`). Returns a flat dict:
-    loss / heatmap_loss / offset_loss per-image means, plus oks / mAP when
-    eval_pose_metrics, plus n_images scored."""
+    notebooks, on `device` (see `resolve_device`); inside a world, over the
+    ranks (`train_mesh`), each batch padded to the batch size with zero
+    weights. Returns a flat dict: loss / heatmap_loss / offset_loss
+    per-image means, plus oks / mAP when eval_pose_metrics, plus n_images
+    scored."""
     device = resolve_device(device)
     full_float32()   # the heads, the loss and Adam are float32: no TF32 on the card
+    mesh = train_mesh(train_cfg, device)
+    if mesh is not None:
+        device = mesh.devices[0]
     model_cfg = _model_cfg(train_cfg)
     decode_cfg = DecodeConfig(min_pose_score=0.25, score_threshold=0.25)
     params = ts.tree_map(lambda t: t.detach().to(device=device, dtype=torch.float32), params)
-    eval_fn = ts.make_eval_step(model_cfg, train_cfg, per_item=True)
+    eval_fn = ts.make_eval_step(model_cfg, train_cfg, mesh=mesh, per_item=True)
 
     loss_sums: Dict[str, float] = {}
     oks_sum = map_sum = 0.0
@@ -243,7 +297,8 @@ def evaluate(dataset: PosenetDataset, train_cfg: TrainConfig, params,
     for batch in dataset.iter_batches(train_cfg.batch_size, shuffle=False,
                                       drop_remainder=False, augment=False):
         real = batch['image'].shape[0]
-        per_item = eval_fn(params, batch)
+        per_item = eval_fn(params, batch if mesh is None
+                           else ts.pad_batch_to(batch, train_cfg.batch_size))
         for k, v in per_item.items():
             loss_sums[k] = loss_sums.get(k, 0.0) + float(v[:real].sum())
         n_images += real
@@ -251,7 +306,7 @@ def evaluate(dataset: PosenetDataset, train_cfg: TrainConfig, params,
             # Weight by the number of SCOREABLE images in the batch:
             # score_decoded_poses averages over those only.
             oks, ap, scored = evaluate_poses(params, batch, model_cfg,
-                                             decode_cfg, n_real=real)
+                                             decode_cfg, n_real=real, mesh=mesh)
             oks_sum += oks * scored
             map_sum += ap * scored
             n_scored += scored
@@ -311,10 +366,22 @@ def train(train_dataset: PosenetDataset,
     """Run the fine-tuning loop on `device` (see `resolve_device`); returns
     the final TrainState. `params`: the starting weights (the port's
     pytree, on any device); None draws random ones from
-    `torch.Generator().manual_seed(train_cfg.seed)`."""
+    `torch.Generator().manual_seed(train_cfg.seed)`.
+
+    `train_cfg.num_devices` > 1 outside a `torch.distributed` world starts
+    that many ranks on this host (NCCL on the cards, gloo on the CPU),
+    each running this function, and returns rank 0's final state, placed
+    on `device`; inside a world each rank runs on its own device."""
     device = resolve_device(device)
-    full_float32()   # the heads, the loss and Adam are float32: no TF32 on the card
     logger = logger or MetricLogger()
+    if train_cfg.num_devices not in (None, 1) and not dist.is_initialized():
+        return _train_in_ranks(train_dataset, test_dataset, train_cfg, logger, params,
+                               resume, eval_pose_metrics, device)
+    full_float32()   # the heads, the loss and Adam are float32: no TF32 on the card
+    mesh = train_mesh(train_cfg, device)
+    if mesh is not None:
+        device = mesh.devices[0]
+    lead = mesh is None or mesh.rank == 0   # the rank that writes
     model_cfg = _model_cfg(train_cfg)
     if params is None:
         params = mobilenet_v1.init_params(
@@ -327,10 +394,20 @@ def train(train_dataset: PosenetDataset,
         if restored is not None:
             state = restored
             resumed = True
-            print(f'resumed from step {int(state.step)}')
+            if lead:
+                print(f'resumed from step {int(state.step)}')
 
-    step_fn = ts.make_train_step(model_cfg, train_cfg)
-    eval_fn = ts.make_eval_step(model_cfg, train_cfg)
+    step_fn = ts.make_train_step(model_cfg, train_cfg, mesh=mesh)
+    eval_fn = ts.make_eval_step(model_cfg, train_cfg, mesh=mesh)
+    # Over a mesh every batch must divide over the ranks, so an epoch
+    # remainder is padded up to the batch size with zero-weight wrap items
+    # (exact gradients of the true batch, pad_batch_to).
+    fit = ((lambda b: b) if mesh is None
+           else (lambda b: ts.pad_batch_to(b, train_cfg.batch_size)))
+    if mesh is not None and lead and len(train_dataset) % train_cfg.batch_size:
+        print(f'note: mesh-sharded training pads the '
+              f'{len(train_dataset) % train_cfg.batch_size}-image epoch remainder up to '
+              f'batch {train_cfg.batch_size} with zero-weight items (exact gradients)')
 
     decode_cfg = DecodeConfig(min_pose_score=0.25, score_threshold=0.25)
     # Across restarts the best-so-far eval loss is kept next to the
@@ -347,7 +424,7 @@ def train(train_dataset: PosenetDataset,
         for batch in train_dataset.iter_batches(
                 train_cfg.batch_size, shuffle=True,
                 seed=train_cfg.seed + epoch, drop_remainder=False):
-            state, m = step_fn(state, batch)
+            state, m = step_fn(state, fit(batch))
             train_losses.append(m)
 
         # One host read per metric and epoch; the steps queue meanwhile.
@@ -362,12 +439,12 @@ def train(train_dataset: PosenetDataset,
             for batch in test_dataset.iter_batches(
                     train_cfg.batch_size, shuffle=False,
                     drop_remainder=False, augment=False):
-                eval_losses.append((eval_fn(state.params, batch),
+                eval_losses.append((eval_fn(state.params, fit(batch)),
                                     batch['image'].shape[0]))
                 if eval_pose_metrics:
                     # scored-count weighting: see evaluate()
                     oks, ap, scored = evaluate_poses(state.params, batch,
-                                                     model_cfg, decode_cfg)
+                                                     model_cfg, decode_cfg, mesh=mesh)
                     oks_vals.append((oks, scored))
                     map_vals.append((ap, scored))
             val_loss = (sum(float(m['loss']) * n for m, n in eval_losses)
@@ -382,14 +459,15 @@ def train(train_dataset: PosenetDataset,
             if val_loss < best_val_loss:
                 best_val_loss = val_loss
                 no_improve = 0
-                save_checkpoint(train_cfg.checkpoint_dir, state,
-                                best_val_loss=val_loss)
+                if lead:
+                    save_checkpoint(train_cfg.checkpoint_dir, state,
+                                    best_val_loss=val_loss)
             else:
                 no_improve += 1
-        else:
+        elif lead:
             save_checkpoint(train_cfg.checkpoint_dir, state)
 
-        if (train_cfg.visual_every > 0
+        if (lead and train_cfg.visual_every > 0
                 and epoch % train_cfg.visual_every == 0):
             vis_ds = test_dataset if test_dataset is not None else train_dataset
             vis_gen = vis_ds.iter_batches(
@@ -404,11 +482,49 @@ def train(train_dataset: PosenetDataset,
                                     train_cfg.output_dir, epoch)
 
         log['epoch_time_s'] = time.time() - t0
-        logger.log(log, step=int(state.step))
+        if lead:
+            logger.log(log, step=int(state.step))
 
         if test_dataset is not None and no_improve >= train_cfg.early_stop_patience:
-            print(f'early stop at epoch {epoch} '
-                  f'(no improvement for {no_improve} epochs)')
+            if lead:
+                print(f'early stop at epoch {epoch} '
+                      f'(no improvement for {no_improve} epochs)')
             break
 
+    return state
+
+
+def _train_rank(result_dir: str, train_dataset, test_dataset, train_cfg: TrainConfig,
+                use_wandb: bool, verbose: bool, params, resume: bool,
+                eval_pose_metrics: bool, device: str):
+    """One rank of `_train_in_ranks`: `train()` in the world; rank 0 writes
+    its final state and its log to `result_dir`."""
+    logger = MetricLogger(use_wandb=use_wandb, verbose=verbose)
+    state = train(train_dataset, test_dataset, train_cfg, logger=logger, params=params,
+                  resume=resume, eval_pose_metrics=eval_pose_metrics, device=device)
+    if dist.get_rank() == 0:
+        save_checkpoint(result_dir, state)
+        with open(os.path.join(result_dir, 'history.json'), 'w') as f:
+            json.dump(logger.history, f)
+
+
+def _train_in_ranks(train_dataset, test_dataset, train_cfg: TrainConfig,
+                    logger: MetricLogger, params, resume: bool, eval_pose_metrics: bool,
+                    device: torch.device) -> ts.TrainState:
+    """`train()` over `train_cfg.num_devices` ranks started on this host;
+    rank 0's final state (on `device`), its log appended to `logger`."""
+    if params is not None:
+        params = ts.tree_map(lambda t: t.detach().cpu(), params)
+    with tempfile.TemporaryDirectory() as result_dir:
+        mesh_lib.launch(_train_rank, train_cfg.num_devices,
+                        args=(result_dir, train_dataset, test_dataset, train_cfg,
+                              logger.wandb is not None, logger.verbose, params, resume,
+                              eval_pose_metrics, device.type),
+                        backend='nccl' if device.type == 'cuda' else 'gloo')
+        if params is None:
+            params = mobilenet_v1.init_params(
+                torch.Generator().manual_seed(train_cfg.seed), _model_cfg(train_cfg))
+        state = restore_checkpoint(result_dir, ts.init_train_state(params, train_cfg, device))
+        with open(os.path.join(result_dir, 'history.json')) as f:
+            logger.history.extend(json.load(f))
     return state

@@ -145,7 +145,9 @@ def test_port_never_imports_jax():
             "posenet_tpu_torch.utils, posenet_tpu_torch.visualizers, "
             "posenet_tpu_torch.profiling, posenet_tpu_torch.apps.image_demo, "
             "posenet_tpu_torch.apps.benchmark, posenet_tpu_torch.apps.webcam_demo, "
-            "posenet_tpu_torch.apps.video_demo, posenet_tpu_torch.apps.streamlit_demo; "
+            "posenet_tpu_torch.apps.video_demo, posenet_tpu_torch.apps.streamlit_demo, "
+            "posenet_tpu_torch.parallel.mesh, posenet_tpu_torch.parallel.spatial, "
+            "posenet_tpu_torch.parallel.dryrun; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, '-c', code], cwd=REPO_ROOT, check=True,

@@ -352,8 +352,11 @@ def test_live_backend_validation(model):
         LivePipelineBackend(model, input_hw=(64, 64))
     with pytest.raises(ValueError, match="bad batch_sizes"):
         LivePipelineBackend(model, input_hw=HW, batch_sizes=())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # more devices than the host has: the CPU is one device
+    with pytest.raises(ValueError, match="a mesh of 4 cpu device.*has 1"):
         LivePipelineBackend(model, input_hw=HW, batch_sizes=(1, 4), num_devices=4)
+    with pytest.raises(ValueError, match="must divide every served batch size"):
+        LivePipelineBackend(model, input_hw=HW, batch_sizes=(1, 4), devices=["cpu"] * 4)
     backend = LivePipelineBackend(model, input_hw=HW, num_devices=1)
     assert backend.meta["backend"] == "live-pipeline" and backend.meta["num_devices"] == 1
     assert backend.device == torch.device("cpu")

@@ -191,12 +191,17 @@ def test_loader_rejects_other_formats(artifact, jax_artifact, tmp_path):
     with pytest.raises(ValueError, match="format_version"):
         load_serving_artifact(newer)
     # Version 1's K1 op took three packed tables: such a program must be
-    # exported again, not fail inside deserialization.
-    assert serving.FORMAT_VERSION == 2
+    # exported again, not fail inside deserialization. Version 3 added
+    # data-parallel programs; a version-2 artifact still loads.
+    assert serving.FORMAT_VERSION == 3
     older = str(tmp_path / "older.posenet")
     _rewrite_meta(artifact[1].path, older, format_version=1)
-    with pytest.raises(ValueError, match="has format_version 1; this loader reads 2"):
+    with pytest.raises(ValueError, match="has format_version 1; this loader reads versions 2 "
+                                         "and 3"):
         load_serving_artifact(older)
+    v2 = str(tmp_path / "v2.posenet")
+    _rewrite_meta(artifact[1].path, v2, format_version=2)
+    assert load_serving_artifact(v2, device="cpu").meta["format_version"] == 2
 
 
 def test_export_rejects_bad_configs(artifact, tmp_path):
@@ -207,7 +212,8 @@ def test_export_rejects_bad_configs(artifact, tmp_path):
     with pytest.raises(ValueError, match="bad batch_sizes"):
         save_serving_artifact(model, out, input_hw=(65, 65), batch_sizes=(0,),
                               platforms=("cpu",))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="data_parallel_devices=2 must divide every "
+                                         "batch size; got \\[1\\]"):
         save_serving_artifact(model, out, input_hw=(65, 65), platforms=("cpu",),
                               data_parallel_devices=2)
     assert not os.path.exists(out)
@@ -285,13 +291,14 @@ def test_serving_entry_points_default_to_the_card(artifact, tmp_path, monkeypatc
     (["--data_parallel_devices", "2", "--random_init_ok"], "item 14"),
 ])
 def test_export_cli_unported_options(tmp_path, monkeypatch, flags, item):
-    """Item 14's option raises NotImplementedError naming its item. Item
-    13's `--from_checkpoint` is ported with training: a directory without
-    a checkpoint exits naming it, and writes nothing
-    (`test_torch_trainer.py` exports a real checkpoint)."""
+    """Both options are ported, and each refuses what it cannot export,
+    writing nothing: item 13's `--from_checkpoint` a directory without a
+    checkpoint (`test_torch_trainer.py` exports a real one), item 14's
+    `--data_parallel_devices 2` the default batch size 1, which two devices
+    cannot split (`test_torch_parallel.py` serves a real one)."""
     monkeypatch.chdir(tmp_path)
     error, match = ((SystemExit, "no checkpoint found in ckpt") if item == "item 13"
-                    else (NotImplementedError, item))
+                    else (ValueError, "data_parallel_devices=2 must divide every batch size"))
     with pytest.raises(error, match=match):
         serving.main(["--model", "50", "--size", "65", "65", "--platforms", "cpu",
                       "--output", str(tmp_path / "x.posenet"), *flags])

@@ -310,7 +310,7 @@ def test_evaluate_matches_jax(tmp_path):
 
 def test_entry_points_default_to_the_card(tmp_path):
     """train(), evaluate() and the CLI run on the card unless asked for the
-    CPU, and raise without one; the CLI refuses data parallelism."""
+    CPU, and raise without one, data-parallel too (before any rank starts)."""
     if torch.cuda.is_available():
         pytest.skip('this host has a card: the defaults run there')
     images, kpdir = make_synthetic_dataset(str(tmp_path), n_images=2)
@@ -326,8 +326,11 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match='CUDA'):
         train_cli.main(argv)
     for extra in (['--num_devices', '2'], ['--distributed']):
-        with pytest.raises(NotImplementedError, match='item 14'):
-            train_cli.main(argv + extra + ['--device', 'cpu'])
+        with pytest.raises(RuntimeError, match='CUDA'):
+            train_cli.main(argv + extra)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        trainer.train(ds, None, TrainConfig(model_id=50, num_devices=2,
+                                            checkpoint_dir=str(tmp_path / 'c')), params=params)
 
 
 def test_train_cli_eval_only_and_export_from_checkpoint(tmp_path, capsys):

@@ -284,8 +284,8 @@ def test_bf16_full_fine_tune_raises():
     cfg = TrainConfig(model_id=50, heads_only=False, compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match='heads_only'):
         ts.make_train_step(ModelConfig(model_id=50, compute_dtype=torch.bfloat16), cfg)
-    with pytest.raises(NotImplementedError, match='item 14'):
-        TrainConfig(num_devices=2)
+    with pytest.raises(ValueError, match='num_devices must be None or >= 1'):
+        TrainConfig(num_devices=0)
 
 
 def test_full_fine_tune_updates_the_trunk_in_float32():
