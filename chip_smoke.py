@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only train # device, build, phase 9
     python3 chip_smoke.py --only parallel # device, build, phase 10
     python3 chip_smoke.py --only multicard # phase 10's layouts across several cards
+    python3 chip_smoke.py --only int8 # device, build, phase 11
 
 Phases, each printing its own line; any failure exits nonzero and prints
 no result:
@@ -150,8 +151,32 @@ no result:
    of 5 b128 batches); spatial b1 latency at 1, 2 and 4 shards against the
    plain pipeline (CUDA events, a call's mean over 20); the DP step at
    world size 1 against the plain step (in (c)).
+11. the int8 trunk (`models/quantized.py`), m101 s16 513x513 (published
+   widths and depth, seeded random weights). (1) `quantize_params` on the
+   card bitwise equal to the CPU's; at every (M, K, N) of the b128 trunk's
+   pointwise products, at M = 9 (padded to 17 rows) and at m50's K = 16:
+   `torch._int_mm` equal to the exact float64 product, and `_pw_int8`
+   bitwise equal to the CPU's on the same rows. (2) The trunk at 2x65x65
+   on the card against the CPU: the share of differing int8 levels at each
+   quantize, printed; the heads within 2e-3, or else within the JAX
+   package's int8 envelope (heatmap 0.02, offsets 0.1), which of the two
+   printed. (3) `PoseNetPipeline` with `quantized=True` on 8 synth_photo
+   frames, then the decode on peaked heads: shapes, finite values, >= 1
+   pose per peaked image, K1 once a batch, K2 never. (4) The data
+   partition over 2 shards of cuda:0 bitwise equal to the unsharded run;
+   the spatial partition, `device_resize_to` and serving export refused.
+   (5) A tfjs m101 checkpoint at published widths
+   (tests/torch_tfjs_fixture.py) converted by `load_model`'s cold start on
+   the card, no fetch: float32 heads card against CPU within 1e-4 of each
+   head's scale; its seconds. (6) Timing beside the card's `name,
+   power.limit`: the int8 and bf16 fused b128 forward + peaked decode in
+   img/s, in turns, best of 3 windows of 10; each forward alone; per layer
+   the s8 product against cuDNN's bf16 1x1 conv and its bound, and the
+   whole int8 layer against the bf16 one (K2 where it runs); a traced int8
+   batch's device time by kind of kernel; peak memory; the trunk's bound
+   (bytes / 3.35 TB/s, s8 operations / 1979 TOPS + bf16 / 989 TFLOP/s).
 Then one JSON line describing the kernels (K1's and K2's with their
-launches on each path of phases 5, 8, 9 and 10), and as the last line
+launches on each path of phases 5, 8, 9, 10 and 11), and as the last line
 {"ok": true, "device": {...}}. Its times are CUDA events per call (host
 dispatch included), with one exception: K1's `ms` is CUDA graph replay,
 the device alone, because its per-call time is the host's; K1's
@@ -162,19 +187,26 @@ and 9, then K1's and K2's timing of 7; `--only parallel` the same with
 phase 10. `--only k1` runs phases 1, 2, K1's part of
 3 and K1's timing of 7; `--only apps` runs phases 1, 2 and 8, its K1
 entry timed at the single pose's shape; `--only k2` runs phases 1, 2, K2's part of 3, the
-bf16 trunk check of 4 and K2's per-layer timing of 7; each then prints the
-same two lines (the kernel's entry; its `launches` from the checks, as
+bf16 trunk check of 4 and K2's per-layer timing of 7; `--only int8` runs
+phases 1, 2 and 11, then K1's timing of 7; each then prints the same two
+lines (the kernel's entry; its `launches` from the checks, as
 `launches_from` says).
 
+The run needs no network: `load_model` without a checkpoint would try
+the tfjs download, so the run's `download._fetch` fails at once as
+offline, and the download cache is a temporary directory.
+
 Bounds (`bound_ms`) are the larger of bytes / 3.35 TB/s and operations /
-the peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
-f32), the H100 SXM's published rates at 700 W.
+the peak rate of their type (989 TFLOP/s bf16 tensor cores, 1979 TOPS s8,
+67 TFLOP/s f32), the H100 SXM's published rates at 700 W.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import importlib
 import importlib.util
 import io
 import json
@@ -187,6 +219,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -201,7 +234,7 @@ from posenet_tpu_torch.config import DecodeConfig, ModelConfig, TrainConfig
 from posenet_tpu_torch.converter import weights
 from posenet_tpu_torch.decode import (_BWD_LEVELS, _FWD_LEVELS, DecodedPoses, _prepare_decode,
                                      decode_batch)
-from posenet_tpu_torch.models import mobilenet_v1
+from posenet_tpu_torch.models import mobilenet_v1, quantized
 from posenet_tpu_torch.models.model_factory import PoseNet
 from posenet_tpu_torch.ops import _build, sepconv, traversal
 from posenet_tpu_torch.parallel import mesh as mesh_lib
@@ -218,6 +251,7 @@ from posenet_tpu_torch.training import trainer
 from posenet_tpu_torch.training import train_step as ts
 from posenet_tpu_torch.training.dataset import PosenetDataset
 from posenet_tpu_torch.training.ground_truth import prepare_ground_truth_data
+from tests import torch_tfjs_fixture
 from tests.torch_k1_cases import head_views, k1_reads_heads_in_place, nose_zero_heads
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -240,11 +274,22 @@ HEAD_ORDER = ('heatmap', 'offset', 'displacement_fwd', 'displacement_bwd')
 HBM_BYTES_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+S8_TOPS = 1979e12
+# The module: the converter package exports the function `download` under its name.
+download = importlib.import_module('posenet_tpu_torch.converter.download')
 
 
 def check(ok: bool, what: str):
     if not ok:
         raise SystemExit(f'chip_smoke: FAILED: {what}')
+
+
+def offline_fetch(url):
+    """`download._fetch` for the whole run, which needs no network:
+    `load_model` without a checkpoint falls back to random weights (with
+    allow_random_init) at once, as after a failed download, and never
+    tries to reach the bucket."""
+    raise urllib.error.URLError(f'chip_smoke runs offline ({url})')
 
 
 def synth_heads(rng, b, h, w):
@@ -2226,6 +2271,370 @@ def multicard(smi) -> tuple:
     return k1, k2
 
 
+# Phase 11: the int8 trunk (models/quantized.py), m101 s16 at 513x513 bf16.
+INT8_MODEL, INT8_SIZE = 101, 513
+
+
+def int8_products(model_id, size, batch):
+    """(M, K, N, layer) of each pointwise product of the `model_id` s16
+    trunk at size x size and `batch`, with the layer's output side."""
+    side, out = size, []
+    for layer in mobilenet_v1.stride_plan(model_id, 16):
+        side = (side - 1) // layer['stride'] + 1
+        if layer['conv_type'] == 'sep':
+            out.append((batch * side * side, layer['inp'], layer['outp'], layer, side))
+    return out
+
+
+def same_tree(a, b) -> bool:
+    """Every leaf equal in dtype, shape and bits (`b` may lie elsewhere)."""
+    return all(x[k].dtype == y[k].dtype and torch.equal(x[k], y[k].to(x[k].device))
+               for x, y in zip(a['backbone'] + list(a['heads'].values()),
+                               b['backbone'] + list(b['heads'].values())) for k in x)
+
+
+def int8_product_checks(dev, params) -> None:
+    """Phase 11 (1): `quantize_params` of m101's weights on the card bitwise
+    equal to the CPU's; then at every (M, K, N) of the m101 s16 513x513
+    b128 trunk, random s8 inputs: `int8_matmul` (`torch._int_mm`) on the
+    card equal to the exact float64 product (every sum is an integer below
+    2^53), and `_pw_int8` on the card bitwise equal to the CPU's on the
+    same rows (all of them up to 65536, else the first and last 32768);
+    and, on every row, at M = 9 (a one-frame 33x33 product, padded to 17
+    rows) and at m50's K = 16."""
+    q_cpu = quantized.quantize_params(params)
+    q_dev = quantized.quantize_params(params, dev)
+    check(same_tree(q_dev, q_cpu), 'quantize_params on the card differs from the CPU\'s')
+    m50 = mobilenet_v1.init_params(torch.Generator().manual_seed(50), ModelConfig(50, 16))
+    g = torch.Generator(device=dev).manual_seed(11)
+    cases = [(m, layer['block_id'], q_cpu, q_dev)
+             for m, _, _, layer, _ in int8_products(INT8_MODEL, INT8_SIZE, 128)]
+    cases += [(9, 7, q_cpu, q_dev),
+              (66049, 1, quantized.quantize_params(m50), quantized.quantize_params(m50, dev))]
+    lines = []
+    for m, i, cpu_layers, dev_layers in cases:
+        w_cpu, w_dev = cpu_layers['backbone'][i], dev_layers['backbone'][i]
+        k, n = w_dev['pw_w8'].shape
+        q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        acc = quantized.int8_matmul(q, w_dev['pw_w8'])
+        exact = all(torch.equal(acc[r:r + 2 ** 20],
+                                (q[r:r + 2 ** 20].double() @ w_dev['pw_w8'].double())
+                                .to(torch.int32))
+                    for r in range(0, m, 2 ** 20))
+        check(exact, f'torch._int_mm at ({m}, {k}, {n}) differs from the exact product')
+        y = quantized._pw_int8(q.view(1, 1, m, k), w_dev)[0, 0]
+        rows = (torch.arange(m, device=dev) if m <= 65536 else
+                torch.cat([torch.arange(32768, device=dev),
+                           torch.arange(m - 32768, m, device=dev)]))
+        ref = quantized._pw_int8(q[rows].cpu().view(1, 1, -1, k), w_cpu)[0, 0]
+        check(torch.equal(y[rows].cpu(), ref),
+              f'_pw_int8 at ({m}, {k}, {n}) on the card differs from the CPU')
+        lines.append(f'({m}, {k}, {n})')
+        del q, acc, y
+    torch.cuda.synchronize()
+    print(f'int8 products: quantize_params of m{INT8_MODEL} on the card bitwise equal to the '
+          f'CPU\'s; torch._int_mm exact and _pw_int8 bitwise equal to the CPU\'s at (M, K, N) '
+          f'{", ".join(lines)}', flush=True)
+
+
+@contextlib.contextmanager
+def recorded_levels():
+    """Every `_quantize_act` output of the enclosed forwards, in order."""
+    seen = []
+    through = quantized._quantize_act
+    quantized._quantize_act = lambda y: seen.append(through(y)) or seen[-1]
+    try:
+        yield seen
+    finally:
+        quantized._quantize_act = through
+
+
+def int8_trunk_check(dev, params) -> None:
+    """Phase 11 (2): the m101 s16 int8 trunk at 2x65x65 on the card against
+    the CPU: the share of differing int8 levels at each quantize (cuDNN
+    sums each depthwise in its own order, and a bf16 rounding moved by it
+    can move a level), and the heads within the bf16 bar 2e-3, or else
+    within the JAX package's int8 envelope (heatmap 0.02, offsets 0.1)."""
+    cfg = ModelConfig(INT8_MODEL, 16, compute_dtype=torch.bfloat16, quantized=True)
+    x = torch.from_numpy(np.random.RandomState(12).uniform(-1, 1, (2, 65, 65, 3))
+                         .astype(np.float32))
+    outs, levels = {}, {}
+    for name, d in (('cpu', 'cpu'), ('cuda', dev)):
+        with recorded_levels() as seen:
+            outs[name] = quantized.forward_quantized(quantized.quantize_params(params, d),
+                                                     x.to(d), cfg)
+        levels[name] = seen
+    torch.cuda.synchronize()
+    labels = ['conv0'] + [f'{i}{part}' for i in range(1, 14) for part in ('dw', 'pw')][:-1]
+    check(len(levels['cuda']) == len(labels), f'{len(levels["cuda"])} quantizes, not 26')
+    shares = [float((a.cpu() != b).float().mean())
+              for a, b in zip(levels['cuda'], levels['cpu'])]
+    gaps = {k: float((outs['cuda'][k].cpu() - outs['cpu'][k]).abs().max()) for k in HEAD_ORDER}
+    if max(gaps.values()) <= 2e-3:
+        held = 'the bf16 bar 2e-3'
+    else:
+        check(gaps['heatmap'] <= 0.02 and gaps['offset'] <= 0.1,
+              f'int8 heads, card vs CPU: {gaps} (limits 2e-3, or heatmap 0.02 and offset 0.1)')
+        held = 'the JAX int8 envelope (heatmap 0.02, offsets 0.1), not the bf16 bar 2e-3'
+    print(f'int8 trunk m{INT8_MODEL} s16 2x65x65, card vs CPU: share of differing int8 levels '
+          f'by quantize {dict(zip(labels, (f"{s:.2e}" for s in shares)))}; heads gaps '
+          f'{ {k: f"{v:.3g}" for k, v in gaps.items()} }: within {held}', flush=True)
+
+
+def int8_pipeline_checks(dev, model, dcfg) -> dict:
+    """Phase 11 (3) and (4): the quantized PoseNetPipeline on 8 synth_photo
+    513x513 frames, then the decode on peaked heads (shapes, finite values,
+    >= 1 pose per peaked image; K1 once a batch, K2 never); the data
+    partition over 2 shards of `dev`, bitwise equal to the unsharded run
+    (K1 once a shard); the refusals of the spatial partition,
+    device_resize_to and serving export. Returns K1's launches by path."""
+    pipe = PoseNetPipeline(model, dcfg)
+    frames = torch.from_numpy(np.stack([synth_photo(INT8_SIZE, INT8_SIZE, 1100 + i)
+                                        for i in range(8)])).to(dev)
+    peaked = peaked_heads(8, 33, 7, dev)
+    pipe.warmup((INT8_SIZE, INT8_SIZE), batch=8)
+    torch.cuda.synchronize()
+    traversal.launches = sepconv.launches = 0
+    poses = pipe(frames)
+    peaked_poses = decode_batch(*peaked, 16, dcfg)
+    torch.cuda.synchronize()
+    launches = {'K1': traversal.launches, 'K2': sepconv.launches}
+    check(launches == {'K1': 2, 'K2': 0},
+          f'quantized pipeline + peaked decode launched {launches}, expected K1 2, K2 0')
+    for out in (poses, peaked_poses):
+        check(tuple(out.keypoint_coords.shape) == (8, 10, 17, 2),
+              f'quantized keypoint_coords shape {tuple(out.keypoint_coords.shape)}')
+        check(all(bool(torch.isfinite(t.float()).all()) for t in out), 'non-finite output')
+    per_image = (peaked_poses.pose_scores > 0).sum(1)
+    check(bool((per_image >= 1).all()), f'peaked decode accepted {per_image.tolist()}')
+    sharded = PoseNetPipeline(model, dcfg, mesh=make_mesh(devices=[dev, dev]))
+    sharded(frames)
+    torch.cuda.synchronize()
+    traversal.launches = sepconv.launches = 0
+    got = sharded(frames)
+    torch.cuda.synchronize()
+    shard_launches = {'K1': traversal.launches, 'K2': sepconv.launches}
+    check(shard_launches == {'K1': 2, 'K2': 0},
+          f'quantized data partition launched {shard_launches}, expected K1 2, K2 0')
+    check(all(torch.equal(a, b) for a, b in zip(got, poses)),
+          'quantized data partition over 2 shards differs from the unsharded run')
+    refused = []
+    for what, call in (
+            ('spatial partition', lambda: PoseNetPipeline(
+                model, dcfg, mesh=make_mesh(devices=[dev, dev]), partition='spatial')),
+            ('device_resize_to', lambda: PoseNetPipeline(model, dcfg,
+                                                         device_resize_to=(513, 513))),
+            ('serving export', lambda: save_serving_artifact(
+                model, os.path.join(tempfile.gettempdir(), 'never.posenet'),
+                input_hw=(65, 65)))):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused.append(f'{what} ({str(e)[:40]}...)')
+            continue
+        check(False, f'the quantized model was not refused: {what}')
+    print(f'quantized pipeline m{INT8_MODEL} s16 8x{INT8_SIZE}x{INT8_SIZE} synth_photo -> '
+          f'{tuple(poses.keypoint_coords.shape)}, finite, poses per frame '
+          f'{(poses.pose_scores > 0).sum(1).tolist()}; peaked decode poses per image '
+          f'{per_image.tolist()}; K1 {launches["K1"]}, K2 {launches["K2"]}; data partition '
+          f'over 2 shards of {dev}: bitwise equal, K1 {shard_launches["K1"]}, K2 '
+          f'{shard_launches["K2"]}; refused: {"; ".join(refused)}', flush=True)
+    return {'quantized pipeline b8 + peaked decode (phase 11)': launches,
+            f'quantized data partition b8 over 2 shards of {dev} (phase 11)': shard_launches}
+
+
+def converter_cold_start(dev) -> None:
+    """Phase 11 (5): a tfjs checkpoint of m101 at published widths
+    (tests/torch_tfjs_fixture.py) in a download cache, `load_model` cold
+    from it on the card (a fetch would fail the run), then from the `.npz`
+    it wrote on the CPU: float32 heads of a photo within 1e-4 of each
+    head's scale; the seconds the cold start took."""
+    def no_fetch(url):
+        check(False, f'the cold start fetched {url}; the checkpoint is in the cache')
+
+    with tempfile.TemporaryDirectory() as root:
+        cache = os.path.join(root, 'cache')
+        t0 = time.perf_counter()
+        torch_tfjs_fixture.write_tfjs_checkpoint(cache, 'mobilenet_v1_101', model_id=101)
+        write_s = time.perf_counter() - t0
+        base_dir, fetch = download.BASE_DIR, download._fetch
+        download.BASE_DIR, download._fetch = cache, no_fetch
+        try:
+            t0 = time.perf_counter()
+            model = load_model(101, 16, os.path.join(root, 'models'), device=dev)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        finally:
+            download.BASE_DIR, download._fetch = base_dir, fetch
+        t0 = time.perf_counter()
+        cpu_model = load_model(101, 16, os.path.join(root, 'models'), device='cpu')
+        warm_s = time.perf_counter() - t0
+    x = normalize(torch.from_numpy(synth_photo(257, 257, 1200)[None]), torch.float32)
+    ref = cpu_model.forward_nhwc(x)
+    got = model.forward_nhwc(x.to(dev))
+    worst = 0.0
+    for k in HEAD_ORDER:
+        rel = float((got[k].cpu() - ref[k]).abs().max()) / max(1.0, float(ref[k].abs().max()))
+        worst = max(worst, rel)
+        check(rel <= 1e-4, f'converted m101 f32 head {k}: card vs CPU {rel:.3g} of scale')
+    print(f'converter: tfjs m101 checkpoint written in {write_s:.2f} s; load_model cold start '
+          f'(read the shards, convert, write the .npz, load onto {dev}) {cold_s:.2f} s, no '
+          f'fetch; the .npz onto the CPU {warm_s:.2f} s; f32 heads 1x257x257 card vs CPU '
+          f'within {worst:.3g} of each head\'s scale (limit 1e-4)', flush=True)
+
+
+def device_time_by_kind(tdir) -> dict:
+    """ms of device time in a trace, by kind of kernel name: the convs
+    (cuDNN), the products (cuBLASLt's GEMMs) and the rest (the elementwise
+    passes: quantize, dequantize, epilogue, casts, ReLU6)."""
+    with open(os.path.join(tdir, 'trace.json')) as f:
+        events = json.load(f)['traceEvents']
+    kinds = {'convs': 0.0, 'products': 0.0, 'elementwise': 0.0}
+    for e in events:
+        if e.get('ph') == 'X' and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            name = e['name'].lower()
+            kind = ('convs' if any(s in name for s in ('conv', 'fprop', 'cudnn')) else
+                    'products' if 'gemm' in name else 'elementwise')
+            kinds[kind] += float(e.get('dur', 0.0)) / 1e3
+    return kinds
+
+
+def int8_timing(dev, model, smi, batch=128) -> None:
+    """Phase 11 (6), beside the card's `name, power.limit`: the int8 and
+    bf16 fused m101 s16 513x513 b128 forward + peaked decode in img/s, in
+    turns, best of 3 windows of 10; each forward alone; per layer the
+    product (`int8_matmul`) against cuDNN's bf16 1x1 conv at its shape and
+    against K2 (its stride-1 rate-1 layers), and the whole int8 layer
+    against the bf16 one; a traced int8 batch's device time by kind of
+    kernel; peak memory of each forward; the bounds."""
+    qcfg = ModelConfig(INT8_MODEL, 16, compute_dtype=torch.bfloat16, quantized=True)
+    bcfg = ModelConfig(INT8_MODEL, 16, compute_dtype=torch.bfloat16)
+    qparams = quantized.quantize_params(model.params, dev)
+    bparams = mobilenet_v1.cast_params(model.params, torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(14)
+    frames = torch.randint(0, 256, (batch, INT8_SIZE, INT8_SIZE, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    peaked = peaked_heads(batch, 33, 8, dev)
+    dcfg = DecodeConfig(min_pose_score=0.25)
+    forwards = {
+        'int8': lambda: quantized.forward_quantized(
+            qparams, normalize(frames, torch.bfloat16), qcfg),
+        'bf16': lambda: mobilenet_v1.forward(bparams, normalize(frames, torch.bfloat16), bcfg)}
+    best = {}
+    for turn in (('int8', 'bf16'), ('bf16', 'int8'), ('int8', 'bf16')):
+        for name in turn:
+            forwards[name]()
+            decode_batch(*peaked, 16, dcfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                forwards[name]()
+                decode_batch(*peaked, 16, dcfg)
+            torch.cuda.synchronize()
+            best[name] = min(best.get(name, float('inf')), time.perf_counter() - t0)
+    fwd_ms, peak_mib = {}, {}
+    for name, fn in forwards.items():
+        fwd_ms[name] = cuda_ms(fn, 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        peak_mib[name] = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 20
+    with tempfile.TemporaryDirectory() as tdir:
+        with trace(tdir, dev):
+            forwards['int8']()
+        kinds = device_time_by_kind(tdir)
+        report = device_time_report(tdir, top=12)
+    print(f'int8 vs bf16, fused m{INT8_MODEL} s16 {INT8_SIZE}x{INT8_SIZE} b{batch} forward + '
+          f'peaked decode ({smi}): int8 {10 * batch / best["int8"]:.1f} img/s, bf16 '
+          f'{10 * batch / best["bf16"]:.1f} img/s (in turns, best of 3 windows of 10); forward '
+          f'alone (CUDA events, mean of 5) int8 {fwd_ms["int8"]:.3f} ms, bf16 '
+          f'{fwd_ms["bf16"]:.3f} ms; peak memory of a forward above what was held: int8 '
+          f'{peak_mib["int8"]:.1f} MiB, bf16 {peak_mib["bf16"]:.1f} MiB', flush=True)
+    print(f'int8 b{batch} forward, device time by kind (one traced batch, torch.profiler): '
+          f'{ {k: f"{v:.3f} ms" for k, v in kinds.items()} }\n{report}', flush=True)
+    del frames
+
+    rows, totals = [], {'int8 product': 0.0, 'cudnn 1x1': 0.0, 'int8 layer': 0.0,
+                        'bf16 layer': 0.0, 'product bound': 0.0}
+    s8_ops = 0.0
+    for m, k, n, layer, side in int8_products(INT8_MODEL, INT8_SIZE, batch):
+        i, s = layer['block_id'], layer['stride']
+        qp, bp = qparams['backbone'][i], bparams['backbone'][i]
+        q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        x = torch.rand((batch, side, side, k), generator=g, device=dev).mul(6).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        side_in = (side - 1) * s + 1
+        q_in = torch.randint(-127, 128, (batch, side_in, side_in, k), generator=g, device=dev,
+                             dtype=torch.int8).permute(0, 3, 1, 2)
+        x_in = quantized._dequantize_act(q_in, torch.bfloat16)
+        w = bp['pw_w'].to(torch.bfloat16)
+
+        def int8_layer():
+            return quantized._quantize_act(quantized.run_sep_layer(q_in, layer, qp))
+
+        ms = {'int8 product': cuda_ms(lambda: quantized.int8_matmul(q, qp['pw_w8']), 10),
+              'cudnn 1x1': cuda_ms(lambda: torch.nn.functional.conv2d(x, w), 10),
+              'int8 layer': cuda_ms(int8_layer, 5),
+              'bf16 layer': cuda_ms(lambda: mobilenet_v1.run_layer(layer, bp, x_in, bcfg), 5)}
+        bf16_route = ('K2' if mobilenet_v1.uses_sepconv(layer, bcfg)
+                      else 'cuDNN depthwise + pointwise: stride 2 or rate 2, no K2')
+        bound = max((m * k + k * n + 4 * m * n) / HBM_BYTES_S, 2 * m * k * n / S8_TOPS) * 1e3
+        ms['product bound'] = bound
+        for key in totals:
+            totals[key] += ms[key]
+        s8_ops += 2 * m * k * n
+        rows.append(f'layer {i} ({m}, {k}, {n}): int8 product {ms["int8 product"]:.4f} ms, '
+                    f'cuDNN bf16 1x1 {ms["cudnn 1x1"]:.4f} ms, bound of the product '
+                    f'{bound:.4f} ms; int8 layer {ms["int8 layer"]:.4f} ms, bf16 layer '
+                    f'{ms["bf16 layer"]:.4f} ms ({bf16_route})')
+        del q, x, q_in, x_in
+    # The trunk as one function of the bf16 input: input, weights and the
+    # bf16 features read or written once; the s8 products at the int8
+    # rate, conv0 and the depthwise convs at the bf16 rate.
+    plan = mobilenet_v1.stride_plan(INT8_MODEL, 16)
+    side, bf16_ops = INT8_SIZE, 0.0
+    for layer in plan:
+        side = (side - 1) // layer['stride'] + 1
+        taps = 27 if layer['conv_type'] == 'input' else 9
+        bf16_ops += 2 * batch * side * side * layer['outp' if taps == 27 else 'inp'] * taps
+    n_weights = sum(t.numel() for layer in qparams['backbone'] for t in layer.values())
+    bytes_io = (batch * INT8_SIZE ** 2 * 3 * 2 + n_weights * 2
+                + batch * side * side * plan[-1]['outp'] * 2)
+    trunk_bound = max(bytes_io / HBM_BYTES_S, s8_ops / S8_TOPS + bf16_ops / BF16_TENSOR_FLOPS)
+    print(f'int8 trunk per layer, m{INT8_MODEL} s16 b{batch} ({smi}; CUDA events):\n  '
+          + '\n  '.join(rows), flush=True)
+    print(f'int8 trunk over its 13 products ({smi}): int8 products {totals["int8 product"]:.4f} '
+          f'ms against cuDNN bf16 1x1 {totals["cudnn 1x1"]:.4f} ms, bound {totals["product bound"]:.4f} '
+          f'ms; the int8 layers {totals["int8 layer"]:.4f} ms against the bf16 layers '
+          f'{totals["bf16 layer"]:.4f} ms; the trunk\'s bound {trunk_bound * 1e3:.4f} ms '
+          f'({bytes_io / 1e9:.3f} GB / 3.35 TB/s = {bytes_io / HBM_BYTES_S * 1e3:.4f} ms; '
+          f'{s8_ops / 1e12:.3f} s8 Tops / 1979 TOPS + {bf16_ops / 1e12:.3f} bf16 TFLOP / 989 '
+          f'TFLOP/s = {(s8_ops / S8_TOPS + bf16_ops / BF16_TENSOR_FLOPS) * 1e3:.4f} ms)',
+          flush=True)
+
+
+def phase11(dev, smi) -> dict:
+    """Phase 11: the int8 trunk on the card. Returns K1's launches by path
+    (K2's are 0 on every one of them)."""
+    t0 = time.perf_counter()
+    base = load_model(INT8_MODEL, 16, allow_random_init=True, device=dev,
+                      compute_dtype=torch.bfloat16)
+    model = PoseNet(base.params, dataclasses.replace(base.cfg, quantized=True))
+    cpu_params = {'backbone': [{k: v.cpu() for k, v in layer.items()}
+                               for layer in base.params['backbone']],
+                  'heads': {n: {k: v.cpu() for k, v in p.items()}
+                            for n, p in base.params['heads'].items()}}
+    int8_product_checks(dev, cpu_params)
+    int8_trunk_check(dev, cpu_params)
+    launches = int8_pipeline_checks(dev, model, DecodeConfig(min_pose_score=0.25))
+    converter_cold_start(dev)
+    int8_timing(dev, model, smi)
+    print(f'phase 11 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return launches
+
+
 def full_run(dev, smi) -> list:
     """Phases 3-8; returns the kernels' entries."""
     max_err = k1_checks(dev)
@@ -2418,27 +2827,44 @@ def full_run(dev, smi) -> list:
 
     # 10. multi-device on the one card
     parallel_k1, parallel_k2 = phase10(dev, smi)
+
+    # 11. the int8 trunk
+    int8_launches = phase11(dev, smi)
     k1 = k1_entry(launches, max(max_err, single_time['err']), k1_time)
     k1['launches_by_path'] = {'main path (phase 5)': launches, **app_launches, **train_k1,
-                              **parallel_k1}
+                              **parallel_k1, **{k: v['K1'] for k, v in int8_launches.items()}}
     k2 = k2_entry(k2_launches, k2_err, k2_time)
-    k2['launches_by_path'] = {'main path (phase 5)': k2_launches, **train_k2, **parallel_k2}
+    k2['launches_by_path'] = {'main path (phase 5)': k2_launches, **train_k2, **parallel_k2,
+                              **{k: v['K2'] for k, v in int8_launches.items()}}
     return [k1, k2]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', choices=('k1', 'k2', 'apps', 'train', 'parallel',
-                                           'multicard'),
+                                           'multicard', 'int8'),
                         help='the device and build phases, then K1 or K2 alone, '
                              'phase 8 (the single pose and the apps), phase 9 '
                              '(training), phase 10 (multi-device on one card) or its '
-                             'layouts across every card of a host with several')
+                             'layouts across every card of a host with several, or '
+                             'phase 11 (the int8 trunk)')
     only = parser.parse_args(argv).only
     found = device_phase()
     if found is None:
         return 1
     kind, dev, smi = found
+    with tempfile.TemporaryDirectory() as cache:
+        download._fetch, download.BASE_DIR = offline_fetch, cache
+        kernels = run_phases(only, dev, smi)
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(only, dev, smi) -> list:
+    """Phase 2, then the phases `--only` names (all without it); returns
+    the kernels' entries."""
     build_phase()
     if only == 'k1':
         traversal.launches = 0
@@ -2486,12 +2912,18 @@ def main(argv=None) -> int:
                  launches_from=f'{run}, not the main path', launches_by_path=parallel_k1),
             dict(k2_entry(parallel_k2[run], 0.0, k2_timing(dev)),
                  launches_from=f'{run}, not the main path', launches_by_path=parallel_k2)]
+    elif only == 'int8':
+        int8_launches = phase11(dev, smi)
+        # No main path runs here: `launches` is the quantized pipeline's.
+        run = 'quantized pipeline b8 + peaked decode (phase 11)'
+        kernels = [dict(k1_entry(int8_launches[run]['K1'], 0.0,
+                                 k1_timing(dev, peaked_heads(128, 33, 8, dev),
+                                           DecodeConfig(min_pose_score=0.25))),
+                        launches_from=f'{run}, not the main path',
+                        launches_by_path={k: v['K1'] for k, v in int8_launches.items()})]
     else:
         kernels = full_run(dev, smi)
-    print(json.dumps({'kernels': kernels}))
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 if __name__ == '__main__':

@@ -14,6 +14,7 @@ import argparse
 import os
 import tempfile
 import time
+import urllib.error
 
 import numpy as np
 
@@ -116,23 +117,24 @@ def main(argv=None):
 
     @st.cache_resource
     def get_model(model_id, output_stride, device):
-        # Only checkpoint loads are cached: a failed load raises, so that
-        # a checkpoint put in place later is picked up on the next rerun.
+        # Only checkpoint loads are cached: a failed download raises, so
+        # that a later rerun with the network picks the checkpoint up.
         return posenet.load_model(model_id, output_stride=output_stride,
                                   device=device)
 
     try:
         model, real_weights = get_model(model_id, output_stride, device), True
-    except FileNotFoundError:
-        # no checkpoint under ./_models: keep the UI usable but SAY so;
-        # random weights served silently would look like a broken
-        # detector. Deliberately uncached (checked again each rerun).
+    except (urllib.error.URLError, TimeoutError):
+        # no checkpoint under ./_models and no network to fetch one: keep
+        # the UI usable but SAY so; random weights served silently would
+        # look like a broken detector. Deliberately uncached (tried again
+        # each rerun).
         model, real_weights = posenet.load_model(
             model_id, output_stride=output_stride, allow_random_init=True,
             device=device), False
     if not real_weights:
-        st.warning("No checkpoint under ./_models: running with RANDOM "
-                   "weights; detections are meaningless.")
+        st.warning("Checkpoint download failed (no network): running with "
+                   "RANDOM weights; detections are meaningless.")
     mode = st.radio("Input", ["Upload image", "Upload video", "Try existing image"])
 
     if mode == "Upload image":

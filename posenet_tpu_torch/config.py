@@ -23,6 +23,12 @@ class ModelConfig:
     # Trunk activation dtype. float32 is the parity mode; bfloat16 is the
     # inference mode. The heads accumulate in float32 in both.
     compute_dtype: torch.dtype = torch.float32
+    # The int8 trunk (`models/quantized.py`): activations stored s8 between
+    # layers, each pointwise conv an s8 x s8 -> s32 product. ReLU6 bounds
+    # every activation to [0, 6], so the quantization is static, with no
+    # calibration pass. Inference only (`PoseNetPipeline`); needs
+    # compute_dtype=bfloat16. The heads and the decoder are unchanged.
+    quantized: bool = False
 
     def __post_init__(self):
         if self.model_id not in (50, 75, 100, 101):
@@ -32,6 +38,10 @@ class ModelConfig:
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
                 f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype}")
+        if self.quantized and self.compute_dtype == torch.float32:
+            raise ValueError(
+                "quantized=True requires compute_dtype=bfloat16 (the int8 trunk is an "
+                "inference mode; float32 is the parity mode)")
 
 
 @dataclasses.dataclass(frozen=True)

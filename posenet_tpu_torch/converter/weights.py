@@ -1,16 +1,20 @@
 """Checkpoint reading and layout conversion.
 
 The JAX package stores parameters as a pytree of HWIO kernels and saves it
-as a flat `.npz` (`backbone/{i}/{k}`, `heads/{name}/{k}`). `load_params_npz`
-reads that file with numpy alone, giving the same HWIO pytree;
+as a flat `.npz` (`backbone/{i}/{k}`, `heads/{name}/{k}`).
+`load_params_npz` and `save_params_npz` read and write that file with
+numpy alone, as the same HWIO pytree, so both packages read one file;
 `params_from_jax` turns such a pytree into the port's tensors, whose
 kernels are OIHW as `torch.nn.functional.conv2d` takes them;
-`adam_state_from_jax` does the same for optax's Adam moments, into a
-`torch.optim.Adam`'s state.
+`quantized_params_from_jax` does the same for the JAX package's folded
+int8 pytree (`posenet_tpu.models.quantized.quantize_params`), and
+`adam_state_from_jax` for optax's Adam moments, into a `torch.optim.Adam`'s
+state.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -38,6 +42,24 @@ def load_params_npz(path: str) -> Dict[str, Any]:
     return {'backbone': backbone, 'heads': heads}
 
 
+def save_params_npz(path: str, params: Dict[str, Any]) -> None:
+    """Write an HWIO pytree of arrays as the flat `.npz` `load_params_npz`
+    reads. The file is written under a temporary name and renamed, so an
+    interrupted save leaves no truncated checkpoint at `path` (a missing
+    one is converted again; a truncated one would be trusted)."""
+    flat = {}
+    for i, layer in enumerate(params['backbone']):
+        for k, v in layer.items():
+            flat[f'backbone/{i}/{k}'] = np.asarray(v)
+    for name, p in params['heads'].items():
+        for k, v in p.items():
+            flat[f'heads/{name}/{k}'] = np.asarray(v)
+    tmp = path + '.tmp'
+    with open(tmp, 'wb') as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)
+
+
 def _layer_from_jax(layer, device) -> Dict[str, torch.Tensor]:
     out = {}
     for k, v in layer.items():
@@ -57,6 +79,38 @@ def params_from_jax(params: Dict[str, Any],
         'heads': {name: _layer_from_jax(p, device)
                   for name, p in params['heads'].items()},
     }
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a), device=device).to(dtype)
+
+
+def quantized_params_from_jax(qparams: Dict[str, Any],
+                              device: torch.device | str = 'cpu') -> Dict[str, Any]:
+    """The JAX package's folded int8 pytree (HWIO, `pw_w8` (C_in, C_out))
+    -> the port's (`models.quantized.quantize_params`' layout) on `device`:
+    bf16 kernels OIHW, `pw_w8` the transposed view of a (C_out, C_in)
+    tensor, the other leaves in their dtypes."""
+    def kernel(a):   # bf16 -> float32 is exact, and numpy has no bf16 of its own
+        return _tensor(np.asarray(a, np.float32).transpose(_HWIO_TO_OIHW), torch.bfloat16,
+                       device)
+
+    backbone = []
+    for p in qparams['backbone']:
+        if 'w' in p:
+            backbone.append({'w': kernel(p['w']), 'b': _tensor(p['b'], torch.float32, device)})
+            continue
+        backbone.append({
+            'dw_w': kernel(p['dw_w']),
+            'dw_b': _tensor(p['dw_b'], torch.float32, device),
+            'pw_w8': _tensor(np.asarray(p['pw_w8']).T, torch.int8, device).t(),
+            'pw_alpha': _tensor(p['pw_alpha'], torch.float32, device),
+            'pw_corr': _tensor(p['pw_corr'], torch.int32, device),
+            'pw_b': _tensor(p['pw_b'], torch.float32, device),
+        })
+    heads = {name: {'w': kernel(hp['w']), 'b': _tensor(hp['b'], torch.float32, device)}
+             for name, hp in qparams['heads'].items()}
+    return {'backbone': backbone, 'heads': heads}
 
 
 def _jax_leaf(tree, path):

@@ -3,8 +3,10 @@
 `load_model(model_id, output_stride, model_dir)` returns a `PoseNet` whose
 call takes an NCHW or NHWC float tensor and returns the four head tensors
 in the same layout. It reads `<model_dir>/<checkpoint>.npz` (the JAX
-package's checkpoint format) when the file exists; otherwise it draws
-random weights when `allow_random_init=True`, and raises when not.
+package's checkpoint format). Cold start: where that file is missing, it
+downloads the tfjs checkpoint and converts it (`converter.tfjs2torch`).
+Without network egress it draws random weights when
+`allow_random_init=True`, and raises the network error when not.
 
 Models are built on the card unless the caller names another device
 (`device='cpu'`); on a host without a CUDA device the default raises.
@@ -13,13 +15,14 @@ Models are built on the card unless the caller names another device
 from __future__ import annotations
 
 import os
+import urllib.error
 from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
 
 from posenet_tpu_torch.config import MODEL_DIR, ModelConfig
-from posenet_tpu_torch.converter import weights
+from posenet_tpu_torch.converter import tfjs2torch, weights
 from posenet_tpu_torch.models import mobilenet_v1
 
 
@@ -118,19 +121,30 @@ def load_model(model_id: int = 101, output_stride: int = 16,
                allow_random_init: bool = False, seed: int = 0,
                device: torch.device | str = 'cuda') -> PoseNet:
     """Load `<model_dir>/<checkpoint>.npz` onto `device` (see
-    `resolve_device`), or, when it is missing and `allow_random_init` is
-    set, build random weights."""
+    `resolve_device`, which runs first), downloading and converting the
+    tfjs checkpoint into it when it is missing (`tfjs2torch.convert`, with
+    the shard cache `converter.download.BASE_DIR` as it is at the call).
+
+    Only a network failure (`urllib.error.URLError`, or `TimeoutError`
+    from a stalled read) falls back, to random weights drawn from `seed`,
+    and only with `allow_random_init`; otherwise it is raised. Any other
+    error (a half-written shard cache, a full disk) is raised in both
+    cases: random weights behind a "download failed" line would look like
+    a broken detector."""
     device = resolve_device(device)
     cfg = ModelConfig(model_id=model_id, output_stride=output_stride,
                       compute_dtype=compute_dtype)
     name = mobilenet_v1.MOBILENET_V1_CHECKPOINTS[model_id]
     path = os.path.join(model_dir, name + '.npz')
-    if os.path.exists(path):
-        params = weights.params_from_jax(weights.load_params_npz(path), device)
-        return PoseNet(params, cfg)
-    if not allow_random_init:
-        raise FileNotFoundError(
-            f"no checkpoint at {path}; convert one with the JAX package "
-            f"(posenet_tpu.converter.tfjs2jax) or pass allow_random_init=True")
-    return MobileNetV1(model_id, output_stride, compute_dtype=compute_dtype,
-                       seed=seed, device=device)
+    if not os.path.exists(path):
+        try:
+            print(f'Cannot find checkpoint {path}, converting from tfjs...')
+            tfjs2torch.convert(model_id, model_dir, device=device)
+        except (urllib.error.URLError, TimeoutError) as e:
+            if not allow_random_init:
+                raise
+            print(f'Download failed ({e}); using random initialization.')
+            return MobileNetV1(model_id, output_stride, compute_dtype=compute_dtype,
+                               seed=seed, device=device)
+    params = weights.params_from_jax(weights.load_params_npz(path), device)
+    return PoseNet(params, cfg)

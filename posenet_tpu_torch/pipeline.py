@@ -7,7 +7,10 @@ frames at the model resolution, `infer_raw` BGR frames at the source
 resolution, which it resizes on the device. Over a mesh
 (`parallel.mesh.make_mesh`) the pipeline runs the data partition, one
 program per shard of the batch, or the spatial partition, the image
-height sharded (`parallel.spatial`). Not ported yet: the int8 trunk.
+height sharded (`parallel.spatial`). With `ModelConfig.quantized` the
+trunk is the int8 one (`models.quantized`), its weights folded once when
+the pipeline is built; it runs `infer` and the data partition, and refuses
+the spatial partition and `device_resize_to`, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.decode import DecodedPoses, decode_batch
-from posenet_tpu_torch.models import mobilenet_v1
+from posenet_tpu_torch.models import mobilenet_v1, quantized
 from posenet_tpu_torch.models.model_factory import PoseNet
 from posenet_tpu_torch.parallel import mesh as mesh_lib
 from posenet_tpu_torch.parallel import spatial
@@ -62,9 +65,13 @@ def infer(params: Dict[str, Any], frames_u8: torch.Tensor, cfg: ModelConfig,
           decode_cfg: DecodeConfig) -> DecodedPoses:
     """(B, H, W, 3) uint8 RGB frames -> DecodedPoses (B, P, ...), on the
     frames' device. `params` must be on that device, cast as
-    `mobilenet_v1.cast_params` does for `cfg.compute_dtype`."""
+    `mobilenet_v1.cast_params` does for `cfg.compute_dtype`, or, with
+    `cfg.quantized`, folded by `quantized.quantize_params`."""
     x = normalize(frames_u8, cfg.compute_dtype)
-    heads = mobilenet_v1.forward(params, x, cfg)
+    if cfg.quantized:
+        heads = quantized.forward_quantized(params, x, cfg)
+    else:
+        heads = mobilenet_v1.forward(params, x, cfg)
     return decode_batch(
         heads['heatmap'], heads['offset'], heads['displacement_fwd'],
         heads['displacement_bwd'], cfg.output_stride, decode_cfg)
@@ -128,7 +135,8 @@ class PoseNetPipeline:
                  mesh: Optional[mesh_lib.Mesh] = None,
                  partition: str = 'data'):
         """`device`: where the program runs (None: the model's device). The
-        kernels are cast once here to the model's compute dtype.
+        kernels are cast once here to the model's compute dtype, or, for a
+        quantized model, folded into the int8 layout.
 
         `device_resize_to`: (th, tw) stride-valid processing resolution.
         When set, a call takes uint8 BGR frames at the SOURCE resolution and
@@ -145,9 +153,15 @@ class PoseNetPipeline:
             decode), queued without waiting on the host.
           'spatial': the image height (`parallel.spatial`), for one
             frame's latency over several devices; the decode runs on the
-            gathered heads. Not with `device_resize_to`."""
+            gathered heads. Not with `device_resize_to`, nor with a
+            quantized model."""
         if partition not in ('data', 'spatial'):
             raise ValueError(f"partition must be 'data' or 'spatial', got {partition!r}")
+        if model.cfg.quantized and device_resize_to is not None:
+            raise NotImplementedError(
+                "device_resize_to + quantized: infer_raw routes through the float "
+                "forward, which cannot read the folded int8 parameters; resize on the "
+                "host for the quantized trunk")
         self.cfg = model.cfg
         self.decode_cfg = decode_cfg
         self.device_resize_to = (tuple(device_resize_to)
@@ -156,8 +170,7 @@ class PoseNetPipeline:
         self.partition = partition
         if mesh is None:
             self.device = torch.device(device) if device is not None else model.device
-            self.params = mobilenet_v1.cast_params(
-                model.params, model.cfg.compute_dtype, self.device)
+            self.params = self._fold(model, self.device)
             return
         if device is not None:
             raise ValueError('give the pipeline a device or a mesh, not both')
@@ -168,10 +181,21 @@ class PoseNetPipeline:
             raise NotImplementedError(
                 "device_resize_to + spatial partition: the height shards are rows "
                 "of the input at the processing resolution; use partition='data'")
+        if partition == 'spatial' and model.cfg.quantized:
+            raise NotImplementedError(
+                "quantized + spatial partition: the int8 trunk has no height-sharded "
+                "form (parallel.spatial runs the float layers, as the JAX package's "
+                "int8 trunk has no valid_h pad-row masking); use partition='data'")
         self.device = mesh.devices[0]
-        self.replicas = mesh_lib.replicate(mobilenet_v1.cast_params(
-            model.params, model.cfg.compute_dtype, self.device), mesh)
+        self.replicas = mesh_lib.replicate(self._fold(model, self.device), mesh)
         self.params = self.replicas[0]
+
+    @staticmethod
+    def _fold(model: PoseNet, device: torch.device) -> Dict[str, Any]:
+        """The model's parameters on `device` as `infer` reads them."""
+        if model.cfg.quantized:
+            return quantized.quantize_params(model.params, device)
+        return mobilenet_v1.cast_params(model.params, model.cfg.compute_dtype, device)
 
     def __call__(self, frames_u8) -> DecodedPoses:
         """Run forward + decode on a uint8 frame batch (B, H, W, 3). Frames

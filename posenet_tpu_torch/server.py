@@ -125,7 +125,8 @@ class LivePipelineBackend:
     """The in-process fused pipeline behind the interface a ServingArtifact
     exposes (`__call__` / `input_hw` / `batch_sizes` / `meta` / `device`),
     so PoseServer can serve either. No export step: it serves the model's
-    current weights, through K1 and K2 on the card.
+    current weights, through K1 and K2 on the card (a quantized model
+    through its int8 trunk and K1; the artifact refuses it).
 
     `num_devices=N` serves each batch over N devices, the pipeline's data
     partition: `devices` (N of them; a device may repeat), or else the

@@ -117,10 +117,17 @@ def save_serving_artifact(
 
     `data_parallel_devices=N` records N: every batch size must divide by
     it, each program is exported at B / N, and the loader runs a batch
-    over N devices (`ServingArtifact`)."""
+    over N devices (`ServingArtifact`).
+
+    A quantized model is refused (NotImplementedError), as the JAX
+    package refuses it: serve it through `server.LivePipelineBackend`."""
     import posenet_tpu_torch
 
     cfg = model.cfg
+    if cfg.quantized:
+        raise NotImplementedError(
+            "serving export of the int8 trunk is not supported; serve a quantized "
+            "model through server.LivePipelineBackend")
     _validate_input_hw(tuple(input_hw), cfg.output_stride)
     platforms = list(platforms)
     if not platforms:

@@ -26,6 +26,7 @@ import torch
 from tests.make_fixture_checkpoint import FIXTURE_PATH
 from tests.test_apps import _FakeCapture, _write_images
 from tests.tfjs_fixture import synth_photo
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
 
 M50 = ['--model', '50', '--allow_random_init', '--device', 'cpu']
 

@@ -48,6 +48,8 @@ from posenet_tpu_torch.training import trainer
 from posenet_tpu_torch.training.dataset import PosenetDataset
 
 from tests.test_trainer import make_synthetic_dataset
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
+from tests.torch_offline import write_random_checkpoint
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO_ROOT, 'tests', 'torch_dp_worker.py')
@@ -183,16 +185,19 @@ def test_train_over_two_ranks_matches_one_device(tmp_path, capfd):
     assert sorted(os.listdir(tmp_path / 'ckpt_2')) == sorted(os.listdir(tmp_path / 'ckpt_None'))
 
 
-def test_train_cli_over_two_ranks(tmp_path, capfd):
+def test_train_cli_over_two_ranks(tmp_path, capfd, monkeypatch):
     """`posenet-train-torch --num_devices 2 --device cpu` starts two ranks
     of itself; rank 0 alone prints and writes its checkpoint. Then
     `--eval_only` over two ranks (3 images in batches of 2: the remainder
     padded with a zero-weight item) prints the single-device `evaluate`'s
-    report, within 1e-5 relative."""
+    report, within 1e-5 relative. The spawned ranks keep no download stub,
+    so ./_models holds the seed-0 weights that allow_random_init draws."""
     import json
 
     from posenet_tpu_torch.apps import train as train_cli
 
+    monkeypatch.chdir(tmp_path)
+    write_random_checkpoint(tmp_path / '_models', 50)
     images, kpdir = make_synthetic_dataset(str(tmp_path), n_images=3)
     ckpt = tmp_path / 'ckpt'
     argv = ['--model', '50', '--train_image_dir', images, '--keypoint_dir', kpdir,

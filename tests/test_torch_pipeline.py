@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
+import urllib.error
 
 import numpy as np
 import pytest
@@ -36,6 +37,7 @@ from posenet_tpu_torch.pipeline import infer, normalize
 
 from tests.make_fixture_checkpoint import FIXTURE_PATH
 from tests.tfjs_fixture import synth_photo
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -116,8 +118,12 @@ def test_model_defaults_to_the_card(build, monkeypatch, tmp_path):
 
 
 def test_load_model_reads_checkpoint_or_raises(tmp_path):
-    with pytest.raises(FileNotFoundError, match="allow_random_init"):
+    """Without a checkpoint, load_model tries the tfjs download (offline
+    here: `tests.torch_offline`) and raises its network error, or, with
+    allow_random_init, draws random weights from the seed."""
+    with pytest.raises(urllib.error.URLError, match="offline"):
         load_model(50, 16, model_dir=str(tmp_path), device='cpu')
+    assert os.listdir(tmp_path) == []
     shutil.copy(FIXTURE_PATH, tmp_path / 'mobilenet_v1_050.npz')
     model = load_model(50, 16, model_dir=str(tmp_path), device='cpu')
     ref = weights.params_from_jax(tfjs2jax.load_params_npz(FIXTURE_PATH))

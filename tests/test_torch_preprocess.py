@@ -42,6 +42,7 @@ from posenet_tpu_torch.models import mobilenet_v1
 
 from tests.make_fixture_checkpoint import FIXTURE_PATH
 from tests.tfjs_fixture import synth_photo
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
 
 RESIZE_ATOL = 1e-5
 

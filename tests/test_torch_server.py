@@ -24,6 +24,8 @@ from posenet_tpu_torch.server import (LivePipelineBackend, PoseServer,
                                       ServerUnavailable, make_http_server)
 from posenet_tpu_torch.serving import load_serving_artifact, save_serving_artifact
 
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
+
 HW = (65, 65)
 DCFG = DecodeConfig(min_pose_score=0.0, score_threshold=0.25)
 

@@ -41,6 +41,7 @@ from tests.make_fixture_checkpoint import FIXTURE_PATH
 from tests.test_torch_decode import cuda  # noqa: F401  (fixture)
 from tests.tfjs_fixture import synth_photo
 from tests.torch_k1_cases import k1_reads_heads_in_place
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
 
 PHOTO_HW = (353, 481)      # the fixture's scenes; stride-valid at 16
 DCFG = DecodeConfig(min_pose_score=0.25)

@@ -1,6 +1,7 @@
 """The port's Streamlit app (`posenet_tpu_torch.apps.streamlit_demo`) driven
 through tests/test_streamlit_demo.py's stand-in `st`, on the CPU
-(`--device cpu`, m50) in a directory without checkpoints: the cases of
+(`--device cpu`, m50) in a directory without checkpoints, where the
+checkpoint download fails as offline (`tests.torch_offline`): the cases of
 tests/test_streamlit_demo.py, every input mode and error path, the
 random-weights warning included."""
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 
 from tests.test_streamlit_demo import FakeStreamlit, _jpg_bytes, _Upload, _write_video
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)
@@ -28,8 +30,8 @@ def _run_main(monkeypatch, answers):
 
 
 def test_image_upload_mode(monkeypatch):
-    """An uploaded image -> its overlay shown; without a checkpoint the app
-    warns that it runs random weights."""
+    """An uploaded image -> its overlay shown; without a checkpoint or the
+    network to fetch one, the app warns that it runs random weights."""
     data, frame = _jpg_bytes()
     fake = _run_main(monkeypatch, {"Input": "Upload image", "Image": _Upload(data)})
     assert len(fake.calls["image"]) == 1

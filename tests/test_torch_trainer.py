@@ -47,6 +47,7 @@ from posenet_tpu_torch.training.dataset import PosenetDataset
 
 from tests.make_fixture_checkpoint import FIXTURE_PATH
 from tests.test_trainer import make_synthetic_dataset
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
 
 JAX_CFG50 = JaxModelConfig(model_id=50, output_stride=16)
 

@@ -15,6 +15,7 @@ import pytest
 from tests.test_torch_apps import M50, fixture_cwd
 from tests.test_video_demo import _write_video
 from tests.tfjs_fixture import synth_photo
+from tests.torch_offline import offline_download  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize('pipeline_depth', ['2', '1'])
