@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only parallel # device, build, phase 10
     python3 chip_smoke.py --only multicard # phase 10's layouts across several cards
     python3 chip_smoke.py --only int8 # device, build, phase 11
+    python3 chip_smoke.py --only tools # device, build, phase 12
 
 Phases, each printing its own line; any failure exits nonzero and prints
 no result:
@@ -64,7 +65,8 @@ no result:
    pipeline_depth 2 and 1: req/s, p50/p99 latency, the batch histogram,
    and the CPU seconds of the server process and of the load generator.
 7. timing (CUDA events / synchronize-bracketed host clock): fused m101 s16
-   513x513 b128 bf16 forward + peaked decode in img/s, best of 3 windows;
+   513x513 b128 bf16 forward + peaked decode (`bench_torch.fused_step`,
+   the step bench_torch.py times) in img/s, best of 3 windows of 10;
    forward and decode alone; the raw-frame path from 720x1280 at b128 in
    img/s; `_prepare_decode` at b128 (CUDA graph and CUDA events) beside
    the row copies it no longer makes; per K2 layer at b128, K2 held to its
@@ -175,8 +177,31 @@ no result:
    whole int8 layer against the bf16 one (K2 where it runs); a traced int8
    batch's device time by kind of kernel; peak memory; the trunk's bound
    (bytes / 3.35 TB/s, s8 operations / 1979 TOPS + bf16 / 989 TFLOP/s).
+12. the benchmark scripts and the tool twins on the card, each through
+   its own entry point. (a) `bench_torch.main` at its defaults (m101 s16
+   513x513 b128 bf16, published widths and depth, 3 windows of 40 fused
+   steps): its JSON line, the card's `name, power.limit` in it, >= 1 pose
+   per peaked image on average (the walk follows random displacements, so
+   an image may accept none), and one `bench_torch.fused_step` (the
+   function phase 7 times) launching K2 9 times and K1 once. (b)
+   `tools/profile_fused_torch.py` at b128: the busy ms a step, the traced
+   window's wall ms, the idle share and device ms by kind of kernel. (c)
+   `benchmark_suite_torch.py` configs 1-7 at --iters 8, each line with the
+   card and its launches in one step: both kernels in configs 1-4 (K2 as
+   many times as the model has stride-1 rate-1 layers), K1 only in 6, K2
+   only in 7, neither in 5. (d) `decode.decode_single` on the card against
+   the CPU, bitwise, one K1 launch a call, at 33x33 s16 and 91x161 s8;
+   `mobilenet_v1.backbone_features` m101 s16 bf16 at 1x257x257 through K2
+   (9 launches) against its plain version on the CPU, within 2e-3 of the
+   features' scale, max(1, max |feature|), NHWC. (e)
+   `tools/verify_spatial_large_torch.py`: the spatial partition at 513x513
+   s16 and 721x1281 s8 over ['cuda:0'] * 8 (every card in turn on a host
+   with several), bitwise equal to the unsharded pipeline. (f)
+   `tools/train_accuracy_delta_torch.py` at its defaults (m50 129x129, 40
+   epochs, 16 + 4 synthesized images; needs cv2): held-out OKS and mAP
+   before and after.
 Then one JSON line describing the kernels (K1's and K2's with their
-launches on each path of phases 5, 8, 9, 10 and 11), and as the last line
+launches on each path of phases 5, 8, 9, 10, 11 and 12), and as the last line
 {"ok": true, "device": {...}}. Its times are CUDA events per call (host
 dispatch included), with one exception: K1's `ms` is CUDA graph replay,
 the device alone, because its per-call time is the host's; K1's
@@ -188,7 +213,8 @@ phase 10. `--only k1` runs phases 1, 2, K1's part of
 3 and K1's timing of 7; `--only apps` runs phases 1, 2 and 8, its K1
 entry timed at the single pose's shape; `--only k2` runs phases 1, 2, K2's part of 3, the
 bf16 trunk check of 4 and K2's per-layer timing of 7; `--only int8` runs
-phases 1, 2 and 11, then K1's timing of 7; each then prints the same two
+phases 1, 2 and 11, then K1's timing of 7; `--only tools` runs phases 1, 2
+and 12, then K1's and K2's timing of 7; each then prints the same two
 lines (the kernel's entry; its `launches` from the checks, as
 `launches_from` says).
 
@@ -253,6 +279,11 @@ from posenet_tpu_torch.training.dataset import PosenetDataset
 from posenet_tpu_torch.training.ground_truth import prepare_ground_truth_data
 from tests import torch_tfjs_fixture
 from tests.torch_k1_cases import head_views, k1_reads_heads_in_place, nose_zero_heads
+from tools import profile_fused_torch, train_accuracy_delta_torch, verify_spatial_large_torch
+
+import bench_torch
+import benchmark_suite_torch
+from bench_torch import peaked_heads
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'fixture_m50_s16.npz')
@@ -310,25 +341,6 @@ def synth_heads(rng, b, h, w):
             rng.uniform(-8, 8, (b, h, w, 34)).astype(np.float32),
             rng.uniform(-24, 24, (b, h, w, 32)).astype(np.float32),
             rng.uniform(-24, 24, (b, h, w, 32)).astype(np.float32)]
-
-
-def peaked_heads(batch, r, seed, device):
-    """bench.py-style peaked heads: 3 gaussian people x 17 keypoints (peak
-    0.9), uniform offsets and displacements in [-8, 8). Each person's
-    keypoints lie within 4 cells of its centre (as in synth_heads), so that
-    poses pass min_pose_score=0.25 and the accept does real work;
-    independent random keypoints, as bench.py draws them, accept none.
-    Drawn from a CPU generator, so every device gets the same heads."""
-    g = torch.Generator().manual_seed(seed)
-    centre = [torch.randint(5, r - 5, (batch, 3, 1, 1, 1), generator=g) for _ in range(2)]
-    ky, kx = [(c + torch.randint(-4, 5, (batch, 3, 17, 1, 1), generator=g)).clamp(0, r - 1)
-              for c in centre]
-    yy = torch.arange(r)[:, None]
-    xx = torch.arange(r)[None, :]
-    blobs = torch.exp(-((yy - ky) ** 2 + (xx - kx) ** 2) / 4.0)   # (B,3,17,R,R)
-    hm = (0.9 * blobs).amax(1).permute(0, 2, 3, 1).contiguous().to(device)
-    flat = (torch.rand((batch, r, r, 98), generator=g) * 16 - 8).to(device)
-    return hm, flat[..., :34], flat[..., 34:66], flat[..., 66:98]
 
 
 def synth_figures(height, width):
@@ -2635,8 +2647,146 @@ def phase11(dev, smi) -> dict:
     return launches
 
 
+def phase12_single_and_features(dev) -> dict:
+    """Phase 12 (d): `decode_single` on the card against the CPU, bitwise,
+    one K1 launch a call; `backbone_features` in bf16 through K2 on the
+    card against its plain version on the CPU. Returns the launches."""
+    rng = np.random.RandomState(12)
+    cfg = DecodeConfig(min_pose_score=0.25)
+    k1 = 0
+    for h, w, stride in ((33, 33, 16), (91, 161, 8)):
+        heads = [torch.from_numpy(a[0]) for a in synth_heads(rng, 1, h, w)]
+        ref = decode.decode_single(*heads, stride, cfg)
+        traversal.launches = 0
+        got = decode.decode_single(*[t.to(dev) for t in heads], stride, cfg)
+        torch.cuda.synchronize()
+        k1 = traversal.launches
+        check(k1 == 1, f'decode_single launched K1 {k1} times')
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)),
+              f'decode_single on the card differs from the CPU at {h}x{w} s{stride}')
+        print(f'decode_single {h}x{w} s{stride}: card bitwise equal to the CPU (pose scores '
+              f'included), {int((ref.pose_scores > 0).sum())} poses, candidate_count '
+              f'{int(ref.candidate_count)}; K1 launches 1', flush=True)
+    mcfg = ModelConfig(101, 16, compute_dtype=torch.bfloat16)
+    params = mobilenet_v1.init_params(torch.Generator().manual_seed(12), mcfg)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 257, 257, 3)).astype(np.float32))
+    ref = mobilenet_v1.backbone_features(mobilenet_v1.cast_params(params, torch.bfloat16), x,
+                                         mcfg)
+    sepconv.launches = 0
+    got = mobilenet_v1.backbone_features(mobilenet_v1.cast_params(params, torch.bfloat16, dev),
+                                         x.to(dev), mcfg)
+    torch.cuda.synchronize()
+    k2 = sepconv.launches
+    scale = max(1.0, float(ref.float().abs().max()))
+    gap = float((got.cpu().float() - ref.float()).abs().max())
+    check(k2 == 9, f'backbone_features m101 s16 bf16 launched K2 {k2} times')
+    check(got.shape == ref.shape == (1, 17, 17, 1024) and got.dtype == torch.bfloat16
+          and got.is_contiguous(), f'backbone_features: {tuple(got.shape)} {got.dtype}')
+    check(gap <= 2e-3 * scale, f'backbone_features bf16, K2 on the card vs plain on the CPU: '
+                               f'{gap} (limit 2e-3 x {scale})')
+    print(f'backbone_features m101 s16 bf16 1x257x257 -> NHWC {tuple(got.shape)}: K2 on the '
+          f'card vs its plain version on the CPU within {gap:.3g} (limit 2e-3 of scale '
+          f'{scale:g}; max |feature| {float(ref.float().abs().max()):.4g}); K2 launches {k2}',
+          flush=True)
+    return {'K1': k1, 'K2': k2}
+
+
+def phase12(dev, smi) -> tuple:
+    """Phase 12: the benchmark scripts and the tool twins on the card.
+    Returns K1's and K2's launches by path."""
+    t0 = time.perf_counter()
+    k1, k2 = {}, {}
+
+    # (a) bench_torch at its defaults; one fused_step's launches counted here
+    line = bench_torch.main([])
+    extra = line['extra']
+    check(extra['device'] == smi, f'bench_torch device {extra["device"]!r}, not {smi!r}')
+    check(extra['poses_per_peaked_image'] >= 1,
+          f'bench_torch: {extra["poses_per_peaked_image"]} poses a peaked image')
+    params, frames, peaked, cfg, dcfg = bench_torch.setup(101, 16, 513, 513, 128, dev)
+    torch.cuda.synchronize()
+    traversal.launches = sepconv.launches = 0
+    bench_torch.fused_step(params, frames, peaked, cfg, dcfg)
+    torch.cuda.synchronize()
+    step = {'K1': traversal.launches, 'K2': sepconv.launches}
+    check(step == {'K1': 1, 'K2': 9} == extra['launches_per_step'],
+          f'bench_torch fused_step launched {step} (its own count {extra["launches_per_step"]})')
+    k1['bench_torch fused_step b128 (phase 12)'] = step['K1']
+    k2['bench_torch fused_step b128 (phase 12)'] = step['K2']
+    print(f'bench_torch: {line["value"]:.1f} img/s (windows {extra["windows_img_per_s"]}), '
+          f'{extra["poses_per_peaked_image"]:.4f} poses a peaked image (at least '
+          f'{extra["min_poses_per_peaked_image"]}); one fused_step '
+          f'launches {step} ({smi})', flush=True)
+    del params, frames, peaked
+
+    # (b) the fused step's device profile
+    with tempfile.TemporaryDirectory() as tdir:
+        traversal.launches = sepconv.launches = 0
+        prof = profile_fused_torch.main(['--trace_dir', tdir])
+        torch.cuda.synchronize()
+    check(prof['busy_ms'] is not None and 0.0 <= prof['idle_share'] < 1.0,
+          f'profile_fused_torch: busy {prof["busy_ms"]}, idle share {prof["idle_share"]}')
+    k1['profile_fused_torch, warm call + 5 traced steps (phase 12)'] = traversal.launches
+    k2['profile_fused_torch, warm call + 5 traced steps (phase 12)'] = sepconv.launches
+    print(f'profile_fused_torch b128: busy {prof["busy_ms_per_step"]:.4f} ms a step, wall '
+          f'{prof["wall_ms_per_step"]:.4f} ms a step, idle share {prof["idle_share"]:.4f}; '
+          f'device ms by kind over {prof["steps"]} steps {prof["device_ms_by_kind"]} ({smi})',
+          flush=True)
+
+    # (c) the suite's seven configs at reduced iterations
+    expected = {1: (1, k2_per_forward(ModelConfig(50, 16, compute_dtype=torch.bfloat16))),
+                2: (1, 9), 3: (1, k2_per_forward(ModelConfig(101, 8,
+                                                             compute_dtype=torch.bfloat16))),
+                4: (1, 9), 5: (0, 0), 6: (1, 0), 7: (0, 9)}
+    lines = benchmark_suite_torch.main(['--configs', '1,2,3,4,5,6,7', '--iters', '8'])
+    for n, line in zip(sorted(expected), lines):
+        got = (line['launches']['K1'], line['launches']['K2'])
+        check(line['config'].startswith(f'{n}:') and got == expected[n]
+              and line['device'] == smi,
+              f'suite config {n}: {line["config"]!r} launched {got}, expected {expected[n]}')
+        k1[f'suite config {line["config"]}, one step (phase 12)'] = got[0]
+        k2[f'suite config {line["config"]}, one step (phase 12)'] = got[1]
+    print(f'benchmark_suite_torch configs 1-7 (--iters 8): K1/K2 launches a step '
+          f'{[(line["launches"]["K1"], line["launches"]["K2"]) for line in lines]}', flush=True)
+
+    # (d) decode_single and backbone_features
+    launches = phase12_single_and_features(dev)
+    k1['decode_single, a call (phase 12)'] = launches['K1']
+    k2['backbone_features m101 s16 bf16 (phase 12)'] = launches['K2']
+
+    # (e) the spatial partition at production grids over 8 shards
+    traversal.launches = sepconv.launches = 0
+    results = verify_spatial_large_torch.main([])
+    torch.cuda.synchronize()
+    check(all(r['bitwise'] for r in results),
+          f'spatial partition not bitwise: {[(r["name"], r["bitwise"]) for r in results]}')
+    k1['verify_spatial_large_torch, 2 grids x (plain + 8 shards) (phase 12)'] = \
+        traversal.launches
+    k2['verify_spatial_large_torch, 2 grids x (plain + 8 shards) (phase 12)'] = \
+        sepconv.launches
+
+    # (f) OKS/mAP before and after a heads-only fine-tune
+    check(importlib.util.find_spec('cv2') is not None,
+          'phase 12 (f) needs cv2 (the synthesized dataset is written as JPEG files)')
+    with tempfile.TemporaryDirectory() as root:
+        traversal.launches = sepconv.launches = 0
+        acc = train_accuracy_delta_torch.run(['--workdir', os.path.join(root, 'acc')])
+        torch.cuda.synchronize()
+    check(all(np.isfinite(acc[p][k]) for p in ('before', 'after') for k in ('loss', 'oks',
+                                                                             'mAP')),
+          f'train_accuracy_delta_torch: {acc}')
+    k1['train_accuracy_delta_torch, m50 129x129, 40 epochs (phase 12)'] = traversal.launches
+    k2['train_accuracy_delta_torch, m50 129x129, 40 epochs (phase 12)'] = sepconv.launches
+    print(f'train_accuracy_delta_torch: OKS {acc["before"]["oks"]:.4f} -> '
+          f'{acc["after"]["oks"]:.4f}, mAP {acc["before"]["mAP"]:.4f} -> '
+          f'{acc["after"]["mAP"]:.4f} ({"improved" if acc["improved"] else "not improved"})',
+          flush=True)
+    print(f'phase 12 took {time.perf_counter() - t0:.1f} s', flush=True)
+    return k1, k2
+
+
 def full_run(dev, smi) -> list:
-    """Phases 3-8; returns the kernels' entries."""
+    """Phases 3-12; returns the kernels' entries."""
     max_err = k1_checks(dev)
     k2_err = k2_checks(dev)
 
@@ -2762,9 +2912,7 @@ def full_run(dev, smi) -> list:
     cfg101 = pipe.cfg
 
     def fused():
-        heads = mobilenet_v1.forward(pipe.params, normalize(frames, cfg101.compute_dtype),
-                                     cfg101)
-        return heads, decode_batch(*peaked, 16, pipe.decode_cfg)
+        return bench_torch.fused_step(pipe.params, frames, peaked, cfg101, pipe.decode_cfg)
 
     n_iters = 10
     fused()
@@ -2830,24 +2978,29 @@ def full_run(dev, smi) -> list:
 
     # 11. the int8 trunk
     int8_launches = phase11(dev, smi)
+
+    # 12. the benchmark scripts and the tools
+    tools_k1, tools_k2 = phase12(dev, smi)
     k1 = k1_entry(launches, max(max_err, single_time['err']), k1_time)
     k1['launches_by_path'] = {'main path (phase 5)': launches, **app_launches, **train_k1,
-                              **parallel_k1, **{k: v['K1'] for k, v in int8_launches.items()}}
+                              **parallel_k1, **{k: v['K1'] for k, v in int8_launches.items()},
+                              **tools_k1}
     k2 = k2_entry(k2_launches, k2_err, k2_time)
     k2['launches_by_path'] = {'main path (phase 5)': k2_launches, **train_k2, **parallel_k2,
-                              **{k: v['K2'] for k, v in int8_launches.items()}}
+                              **{k: v['K2'] for k, v in int8_launches.items()}, **tools_k2}
     return [k1, k2]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--only', choices=('k1', 'k2', 'apps', 'train', 'parallel',
-                                           'multicard', 'int8'),
+                                           'multicard', 'int8', 'tools'),
                         help='the device and build phases, then K1 or K2 alone, '
                              'phase 8 (the single pose and the apps), phase 9 '
                              '(training), phase 10 (multi-device on one card) or its '
-                             'layouts across every card of a host with several, or '
-                             'phase 11 (the int8 trunk)')
+                             'layouts across every card of a host with several, '
+                             'phase 11 (the int8 trunk) or phase 12 (the benchmark '
+                             'scripts and the tools)')
     only = parser.parse_args(argv).only
     found = device_phase()
     if found is None:
@@ -2921,6 +3074,16 @@ def run_phases(only, dev, smi) -> list:
                                            DecodeConfig(min_pose_score=0.25))),
                         launches_from=f'{run}, not the main path',
                         launches_by_path={k: v['K1'] for k, v in int8_launches.items()})]
+    elif only == 'tools':
+        tools_k1, tools_k2 = phase12(dev, smi)
+        # No main path of phase 5 runs here: `launches` is bench_torch's fused step.
+        run = 'bench_torch fused_step b128 (phase 12)'
+        kernels = [
+            dict(k1_entry(tools_k1[run], 0.0, k1_timing(dev, peaked_heads(128, 33, 8, dev),
+                                                          DecodeConfig(min_pose_score=0.25))),
+                 launches_from=f'{run}, not the main path', launches_by_path=tools_k1),
+            dict(k2_entry(tools_k2[run], 0.0, k2_timing(dev)),
+                 launches_from=f'{run}, not the main path', launches_by_path=tools_k2)]
     else:
         kernels = full_run(dev, smi)
     return kernels

@@ -7,7 +7,7 @@ equal to. It imports torch and never jax.
 
 from posenet_tpu_torch.constants import *  # noqa: F401,F403
 from posenet_tpu_torch import constants, decode, decode_multi  # noqa: F401
-from posenet_tpu_torch.config import DecodeConfig, ModelConfig  # noqa: F401
+from posenet_tpu_torch.config import DecodeConfig, ModelConfig, TrainConfig  # noqa: F401
 from posenet_tpu_torch.decode import (DecodedPoses, decode_batch,  # noqa: F401
                                       build_part_with_score_single_pose,
                                       decode_pose, decode_single_pose, find_root)

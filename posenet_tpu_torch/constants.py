@@ -13,7 +13,8 @@ import numpy as np
 __all__ = [
     "PART_NAMES", "NUM_KEYPOINTS", "PART_IDS", "CONNECTED_PART_NAMES",
     "CONNECTED_PART_INDICES", "LOCAL_MAXIMUM_RADIUS", "POSE_CHAIN",
-    "PARENT_CHILD_TUPLES", "NUM_EDGES", "EDGES", "LEFT_RIGHT_SWAP", "OKS_SIGMAS",
+    "PARENT_CHILD_TUPLES", "NUM_EDGES", "EDGES", "PART_CHANNELS", "LEFT_RIGHT_SWAP",
+    "OKS_SIGMAS",
 ]
 
 PART_NAMES = [
@@ -77,6 +78,35 @@ NUM_EDGES = len(PARENT_CHILD_TUPLES)  # 16
 
 # Column 0 = parent id, column 1 = child id.
 EDGES = np.asarray(PARENT_CHILD_TUPLES, dtype=np.int32)  # (16, 2)
+
+# Body-part segmentation channel names of the reference; kept for API
+# parity, unused by the decoder.
+PART_CHANNELS = [
+    'left_face',
+    'right_face',
+    'right_upper_leg_front',
+    'right_lower_leg_back',
+    'right_upper_leg_back',
+    'left_lower_leg_front',
+    'left_upper_leg_front',
+    'left_upper_leg_back',
+    'left_lower_leg_back',
+    'right_feet',
+    'right_lower_leg_front',
+    'left_feet',
+    'torso_front',
+    'torso_back',
+    'right_upper_arm_front',
+    'right_upper_arm_back',
+    'right_lower_arm_back',
+    'left_lower_arm_front',
+    'left_upper_arm_front',
+    'left_upper_arm_back',
+    'left_lower_arm_back',
+    'right_hand',
+    'right_lower_arm_front',
+    'left_hand',
+]
 
 # COCO OKS per-keypoint falloff sigmas (the training metrics).
 OKS_SIGMAS = np.array(

@@ -19,6 +19,7 @@ image, one kernel launch on the card.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -122,6 +123,13 @@ def _greedy_accept(cand_scores, cand_kp, root_coords, all_scores, all_coords,
     candidate's eligibility only falls as poses are accepted, so this is
     the reference's per-candidate loop, and a round that accepts nothing
     changes nothing: exactly P rounds equal the JAX package's while_loop.
+
+    A candidate's instance score adds its 17 kept keypoint scores left to
+    right, the order of XLA's CPU reduction, so that it is within 1 ulp of
+    the JAX package's (XLA multiplies by a rounded 1/17 where this
+    divides) and bitwise the same on the card and on the CPU. `torch.sum`
+    adds in other orders there, up to 3 ulp from JAX's
+    (tools/fuzz_decode_parity_torch.py).
     """
     b, k = cand_scores.shape
     p = cfg.max_pose_detections
@@ -153,7 +161,8 @@ def _greedy_accept(cand_scores, cand_kp, root_coords, all_scores, all_coords,
         d = kp_coords[:, :, None] - all_coords[:, None]           # (B,P,K,17,2)
         d2 = (d * d).sum(-1)
         overlapped = (occupied[:, :, None, None] & (d2 <= r2)).any(1)
-        inst = torch.where(overlapped, 0.0, all_scores).sum(-1) / n_kp  # (B, K)
+        kept = torch.where(overlapped, 0.0, all_scores).unbind(-1)
+        inst = functools.reduce(torch.add, kept) / n_kp          # (B, K)
 
         score_ok = (cfg.min_pose_score == 0.0) | (inst >= cfg.min_pose_score)
         eligible = valid & ~root_sup & score_ok
@@ -185,6 +194,22 @@ def decode_batch(heatmap, offsets, dfwd, dbwd, output_stride: int,
     return _greedy_accept(cand_scores, cand_kp, root_coords, all_scores,
                           all_coords, all_offsets, cfg)._replace(
                               candidate_count=n_cand)
+
+
+def decode_single(heatmap, offsets, dfwd, dbwd, output_stride: int,
+                  cfg: DecodeConfig) -> DecodedPoses:
+    """One image's HWC heads -> an unbatched DecodedPoses (P, ...), with
+    `candidate_count` a 0-d tensor: element 0 of `decode_batch` on a
+    batch of one (one tree-walk launch on the card).
+
+    Args:
+      heatmap: (H, W, 17) sigmoid scores.
+      offsets: (H, W, 34) packed [y||x].
+      dfwd/dbwd: (H, W, 32) packed [y||x].
+    """
+    out = decode_batch(heatmap[None], offsets[None], dfwd[None], dbwd[None],
+                       output_stride, cfg)
+    return DecodedPoses(*(t[0] for t in out))
 
 
 # ---------------------------------------------------------------------------

@@ -255,6 +255,18 @@ def run_trunk(params: Dict[str, Any], x_nhwc: torch.Tensor,
     return x
 
 
+def backbone_features(params: Dict[str, Any], x_nhwc: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """The trunk only (the pre-head features, a debugging tap): NHWC input
+    -> (B, R, R', C) NHWC features in the compute dtype, as the JAX
+    package's `backbone_features` returns them; a view of `run_trunk`'s
+    channels_last output, whose memory is NHWC. The bf16 trunk runs K2 on
+    its stride-1, rate-1 layers as `forward` does. JAX's `precision=` has
+    no counterpart: float32 parity on the card needs TF32 off, as
+    `apps.full_float32` sets it."""
+    return run_trunk(params, x_nhwc, cfg).permute(0, 2, 3, 1)
+
+
 def head_conv(heads_params: Dict[str, Any], feat: torch.Tensor) -> torch.Tensor:
     """All four 1x1 heads as ONE float32 conv over the concatenated 115
     output channels, so the trunk features are read once: (B, R, R', 115)

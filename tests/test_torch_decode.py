@@ -38,6 +38,7 @@ from posenet_tpu_torch.models import mobilenet_v1
 from posenet_tpu_torch.ops import traversal
 
 from tests.test_decode import synth_heads
+from tests.test_torch_single_pose import _fixture_heads
 from tests.torch_k1_cases import head_views, nose_zero_heads
 
 GRIDS = [((33, 33), 16), ((91, 161), 8)]
@@ -495,3 +496,49 @@ def test_decode_batch_on_card_matches_jax(cuda, grid, stride):
     out = decode.decode_batch(*[torch.from_numpy(a).to(cuda) for a in nhwc],
                               stride, DecodeConfig(**kw))
     _assert_poses(decode.DecodedPoses(*[t.cpu() for t in out]), ref)
+
+
+def _hwc(seed, grid):
+    return [np.ascontiguousarray(h.transpose(1, 2, 0)) for h in synth_heads(seed, r=grid)]
+
+
+DECODE_SINGLE_CASES = {
+    'fixture_m50_s16': (_fixture_heads, 16),
+    '33x33_s16': (lambda: _hwc(31, 33), 16),
+    '91x161_s8': (lambda: _hwc(32, (91, 161)), 8),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_SINGLE_CASES))
+def test_decode_single_matches_jax(case):
+    """One image's HWC heads -> unbatched DecodedPoses, against JAX's
+    `decode_single`: keypoints bitwise, pose scores within 2 ulp, the same
+    candidate count; and exactly element 0 of the port's `decode_batch`."""
+    make, stride = DECODE_SINGLE_CASES[case]
+    heads = make()
+    kw = dict(min_pose_score=0.25)
+    ref = jax.jit(jax_decode.decode_single, static_argnums=(4, 5))(
+        *[jnp.asarray(h) for h in heads], stride, JaxDecodeConfig(**kw))
+    ours = decode.decode_single(*[torch.from_numpy(h) for h in heads], stride,
+                                DecodeConfig(**kw))
+    assert ours.pose_scores.shape == (10,) and ours.candidate_count.shape == ()
+    _assert_poses(ours, ref)
+    assert (ours.pose_scores > 0).any()
+    batch = decode.decode_batch(*[torch.from_numpy(h)[None] for h in heads], stride,
+                                DecodeConfig(**kw))
+    for a, b in zip(ours, batch):
+        assert torch.equal(a, b[0])
+
+
+@pytest.mark.cuda
+def test_decode_single_on_card_matches_cpu(cuda):
+    """On the card: bitwise the CPU's result, with one K1 launch."""
+    heads = _hwc(33, (91, 161))
+    cfg = DecodeConfig(min_pose_score=0.25)
+    ref = decode.decode_single(*[torch.from_numpy(h) for h in heads], 8, cfg)
+    before = traversal.launches
+    got = decode.decode_single(*[torch.from_numpy(h).to(cuda) for h in heads], 8, cfg)
+    torch.cuda.synchronize()
+    assert traversal.launches == before + 1
+    for a, r in zip(got, ref):
+        assert torch.equal(a.cpu(), r)

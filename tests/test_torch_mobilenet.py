@@ -142,3 +142,43 @@ def test_posenet_params_round_trip_through_module():
     for a, b in zip(got['backbone'], params['backbone']):
         assert all(a[k] is b[k] for k in b)
     assert all(got['heads'][n]['w'] is params['heads'][n]['w'] for n in params['heads'])
+
+
+@pytest.mark.parametrize("model_id,stride", [(50, 16), (101, 8)])
+def test_backbone_features_match_jax(model_id, stride):
+    """The trunk's features, NHWC as JAX's `backbone_features` returns
+    them (the port's channels_last memory, no copy): float32 within 1e-4
+    of their scale, max(1, max |feature|), as the heads are held."""
+    params = numpy_params(model_id, seed=stride)
+    x = np.random.RandomState(stride).uniform(-1, 1, (2, 33, 49, 3)).astype(np.float32)
+    ref = np.asarray(jax_mobilenet.backbone_features(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x),
+        JaxModelConfig(model_id=model_id, output_stride=stride),
+        precision=jax.lax.Precision.HIGHEST))
+    ours = mobilenet_v1.backbone_features(weights.params_from_jax(params),
+                                          torch.from_numpy(x),
+                                          ModelConfig(model_id, stride))
+    assert ours.shape == ref.shape and ours.dtype == torch.float32
+    assert ours.is_contiguous()
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-4 * scale, rtol=0)
+
+
+def test_backbone_features_bf16_match_jax():
+    """bf16 m101 s16, the stride-1 rate-1 layers through K2's plain
+    version, against JAX's bf16 trunk: within 2e-3 of the features' scale,
+    max(1, max |feature|); measured: one bf16 ulp of features below 0.5
+    (2^-9)."""
+    params = numpy_params(101, seed=5)
+    x = np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3)).astype(np.float32)
+    jcfg = JaxModelConfig(model_id=101, output_stride=16, compute_dtype=jnp.bfloat16)
+    ref = np.asarray(jax_mobilenet.backbone_features(
+        jax_mobilenet.cast_params(jax.tree.map(jnp.asarray, params), jnp.bfloat16),
+        jnp.asarray(x), jcfg).astype(jnp.float32))
+    cfg = ModelConfig(model_id=101, output_stride=16, compute_dtype=torch.bfloat16)
+    ours = mobilenet_v1.backbone_features(
+        mobilenet_v1.cast_params(weights.params_from_jax(params), torch.bfloat16),
+        torch.from_numpy(x), cfg)
+    assert ours.shape == ref.shape == (2, 5, 5, 1024) and ours.dtype == torch.bfloat16
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=2e-3 * scale, rtol=0)
