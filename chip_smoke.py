@@ -92,7 +92,7 @@ no result:
    breakdown) and at --batch_size 128 --image_size 513 with --profile (the
    traced batch's device time by kernel), webcam_demo on a stand-in
    capture of 8 frames cold and 24 warm, then webcam_demo's own loop with
-   `StageTimer` around the helpers it calls, video_demo on a 40-frame
+   `profiling.span` around the helpers it calls, video_demo on a 40-frame
    720x1280 mp4 at 513x513 batch 16, with the host resize and with
    --device_preprocess; outputs, K1's launches over each run, and each
    app's FPS line beside the card's `name, power.limit`. Then the
@@ -268,7 +268,8 @@ from posenet_tpu_torch.parallel import spatial
 from posenet_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from posenet_tpu_torch.pipeline import infer, infer_raw, normalize
 from posenet_tpu_torch.preprocess import preprocess_on_device, process_input
-from posenet_tpu_torch.profiling import StageTimer, device_time_report, trace
+from posenet_tpu_torch import profiling
+from posenet_tpu_torch.profiling import device_time_report, trace
 from posenet_tpu_torch.server import (LivePipelineBackend, PoseServer, _Request,
                                       make_http_server)
 from posenet_tpu_torch.serving import load_serving_artifact, save_serving_artifact
@@ -784,8 +785,11 @@ def serving_breakdown(model, dcfg, batch=32, reps=5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             server._finish_chunk(server._dispatch_chunk(reqs, batch))
         busy_us, end = 0.0, float('-inf')
+        # `record_function` ranges (the pipeline's spans among them) also
+        # appear on the device, as annotations over the kernels they hold.
         for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                                  if e.device_type == DeviceType.CUDA):
+                                  if e.device_type == DeviceType.CUDA
+                                  and not e.is_user_annotation):
             if stop > end:
                 busy_us += stop - max(start, end)
                 end = stop
@@ -1232,7 +1236,7 @@ def per_frame_decode(dev, frame):
 def webcam_steps(bgr, smi, n=24):
     """Where webcam_demo's time goes, from its own loop: its `main` on a
     stand-in capture of n warm 720x1280 frames (-> 513x913), with
-    `StageTimer` stages around the helpers it calls: `read_cap` (the read,
+    `profiling.span` stages around the helpers it calls: `read_cap` (the read,
     the host resize and normalize), the model's call (the upload and the
     forward, the device synchronised after it so that the stage holds the
     forward's device time), `decode_multiple_poses` (the decode and the
@@ -1242,11 +1246,9 @@ def webcam_steps(bgr, smi, n=24):
     import posenet_tpu_torch as posenet
     from posenet_tpu_torch.apps import webcam_demo
 
-    timer = StageTimer()
-
     def timed(name, fn, sync=False):
         def call(*a, **k):
-            with timer.stage(name):
+            with profiling.span(name):
                 out = fn(*a, **k)
                 if sync:
                     torch.cuda.synchronize()
@@ -1269,17 +1271,19 @@ def webcam_steps(bgr, smi, n=24):
     try:
         for name, fn in helpers.items():
             setattr(posenet, name, fn)
-        out, launches, _ = run_app(webcam_demo, ['--no_display', '--allow_random_init'])
+        with profiling.recording():
+            out, launches, _ = run_app(webcam_demo, ['--no_display', '--allow_random_init'])
     finally:
         cv2.VideoCapture = capture
         for name, fn in saved.items():
             setattr(posenet, name, fn)
     check(launches == n, f'webcam_demo (timed) launched K1 {launches} times for {n} frames')
-    total = sum(timer.totals.values()) * 1000 / n
-    print(f'apps: webcam_demo\'s own loop under StageTimer, m101 s16 f32, {n} warm frames '
+    report = profiling.span_report()
+    total = sum(r['total_ms'] for r in report.values()) / n
+    print(f'apps: webcam_demo\'s own loop in spans, m101 s16 f32, {n} warm frames '
           f'720x1280 -> 513x913 ({smi}): {total:.3f} ms a frame in its helpers, '
           f'{printed_fps(out):.2f} FPS printed (with the sync after each forward); '
-          f'K1 launches {launches}\n{timer.report()}', flush=True)
+          f'K1 launches {launches}\n{profiling.span_table(report)}', flush=True)
 
 
 def apps_phase(dev, smi) -> dict:
@@ -1327,7 +1331,7 @@ def apps_phase(dev, smi) -> dict:
                 report = out.split('Average FPS:', 1)[1].split('\n', 1)[1].rstrip()
                 print(f'apps: benchmark {label}, m101 s16 f32, 20 frames at 721x1281: '
                       f'{printed_fps(out):.2f} FPS ({smi}); K1 launches {n}'
-                      + (f'; its stage breakdown (device synchronised after each forward):\n'
+                      + (f'; its spans (host and device ms of each stage):\n'
                          f'{report}' if extra else ''), flush=True)
 
             out, n, secs = run_app(benchmark, ['--image_dir', 'images', '--batch_size', '128',
@@ -1338,11 +1342,13 @@ def apps_phase(dev, smi) -> dict:
                                     f'batch and {batches} timed batches)')
             launches['benchmark b128'] = n
             report = out.split('Average FPS:', 1)[0].strip().splitlines()
-            report = report[:12] + report[12:][-1:]   # the largest, and the total
+            total = next(i for i, line in enumerate(report) if line.startswith('TOTAL'))
+            # The largest kernels, the total, and the pipeline's spans.
+            report = report[:12] + report[total:]
             print(f'apps: benchmark --batch_size 128 --image_size 513, m101 s16 f32: '
                   f'{printed_fps(out):.1f} FPS ({smi}); K1 launches {n} (warm-up, the traced '
                   f'batch, {batches} timed); device time of the traced batch by kernel '
-                  f'(torch.profiler):\n' + '\n'.join(report), flush=True)
+                  f'(torch.profiler), then its spans:\n' + '\n'.join(report), flush=True)
 
             capture = cv2.VideoCapture
             for when, frames in (('cold', 8), ('warm', 24)):

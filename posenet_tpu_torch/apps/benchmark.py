@@ -11,18 +11,22 @@ modes:
   decode on the device).
 
 --profile DIR: in the batch mode, a `torch.profiler` trace of one batch
-into DIR and a table of device time by kernel; in the per-frame mode, a
-host-clock breakdown of forward and decode (`StageTimer`), the device
-synchronised after each forward.
+into DIR, a table of device time by kernel and one of the pipeline's
+spans (`pipeline.call`, `pipeline.to_device`, `pipeline.forward`,
+`pipeline.decode`); in the per-frame mode, the host and device ms of each
+frame's forward and decode (`profiling.span` under
+`profiling.recording()`).
 
     python -m posenet_tpu_torch.apps.benchmark --image_dir ./images --allow_random_init
 """
 
 import argparse
+import contextlib
 import os
 import time
 
 import posenet_tpu_torch as posenet
+from posenet_tpu_torch import profiling
 from posenet_tpu_torch.apps import add_device_flag, full_float32
 from posenet_tpu_torch.config import DecodeConfig
 from posenet_tpu_torch.pipeline import PoseNetPipeline, to_device
@@ -106,11 +110,11 @@ def main(argv=None):
         frames[0, 0, 0, 0].item()
 
         if args.profile:
-            from posenet_tpu_torch.profiling import device_time_report, trace
-            with trace(args.profile, pipe.device):
+            with profiling.trace(args.profile, pipe.device):
                 out = pipe(frames)
                 out.pose_scores[0, 0].item()
-            print(device_time_report(args.profile))
+            print(profiling.device_time_report(args.profile))
+            print(profiling.span_table())
 
         start = time.time()
         for _ in range(n_batches):
@@ -121,31 +125,26 @@ def main(argv=None):
         print('Average FPS:', n / elapsed)
         return
 
-    # Per-frame loop; --profile adds a host-side stage breakdown (forward
-    # vs decode).
-    from posenet_tpu_torch.profiling import StageTimer
-    timer = StageTimer()
+    # Per-frame loop; --profile times each frame's forward and decode, on
+    # the host and, between the spans' events, on the device. The decode
+    # reads its poses back, so its host ms hold the wait for the forward.
     start = time.time()
-    for i in range(num_images):
-        input_image = images[filenames[i % len(filenames)]]
-        with timer.stage('forward'):
-            heatmaps, offsets, displacement_fwd, displacement_bwd = model(input_image)
-            if args.profile:
-                # The forward's launches return before the device is done;
-                # without a wait 'decode' would absorb the forward's device
-                # time. Only under --profile: it serializes the loop.
-                heatmaps[(0,) * heatmaps.ndim].item()
-        with timer.stage('decode'):
-            posenet.decode_multiple_poses(
-                heatmaps.squeeze(0), offsets.squeeze(0),
-                displacement_fwd.squeeze(0), displacement_bwd.squeeze(0),
-                output_stride=output_stride,
-                max_pose_detections=10,
-                min_pose_score=0.25,
-                device=args.device)
+    with profiling.recording() if args.profile else contextlib.nullcontext():
+        for i in range(num_images):
+            input_image = images[filenames[i % len(filenames)]]
+            with profiling.span('frame.forward', model.device):
+                heatmaps, offsets, displacement_fwd, displacement_bwd = model(input_image)
+            with profiling.span('frame.decode', model.device):
+                posenet.decode_multiple_poses(
+                    heatmaps.squeeze(0), offsets.squeeze(0),
+                    displacement_fwd.squeeze(0), displacement_bwd.squeeze(0),
+                    output_stride=output_stride,
+                    max_pose_detections=10,
+                    min_pose_score=0.25,
+                    device=args.device)
     print('Average FPS:', num_images / (time.time() - start))
     if args.profile:
-        print(timer.report())
+        print(profiling.span_table())
 
 
 if __name__ == "__main__":

@@ -5,7 +5,12 @@ sent as uint8 NHWC batches through the fused `PoseNetPipeline` (normalize,
 forward, decode on the device); only the (B, P, 17, 2) pose buffers come
 back. With --device_preprocess the frames go at their source resolution
 and the device resizes them. The flags, defaults, printed lines and
-outputs are `video_demo.py`'s, with `--device` added.
+outputs are `video_demo.py`'s, with `--device` and `--profile` added.
+
+--profile: records the pipeline's spans (`profiling.recording()`) and
+prints their host and device ms at the end (`profiling.span_table()`):
+`pipeline.call` around `pipeline.to_device`, `pipeline.forward`,
+`pipeline.decode`, and with --device_preprocess `pipeline.preprocess`.
 
 Outputs: an overlay video (--output_video) and/or one JSON line per frame
 (--poses_out) with every pose above --min_pose_score at SOURCE resolution.
@@ -14,6 +19,7 @@ Outputs: an overlay video (--output_video) and/or one JSON line per frame
 """
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -21,6 +27,7 @@ import time
 import numpy as np
 
 import posenet_tpu_torch as posenet
+from posenet_tpu_torch import profiling
 from posenet_tpu_torch.apps import add_device_flag, full_float32
 from posenet_tpu_torch.config import DecodeConfig
 from posenet_tpu_torch.pipeline import PoseNetPipeline
@@ -72,6 +79,9 @@ def parse_args(argv=None):
                              'fetching batch N, overlapping device compute '
                              'with host read/resize/draw; 1: synchronous '
                              'batches (A/B baseline)')
+    parser.add_argument('--profile', action='store_true',
+                        help="print the host and device ms of each of the "
+                             "pipeline's stages (its spans) at the end")
     add_device_flag(parser)
     return parser.parse_args(argv)
 
@@ -167,48 +177,49 @@ def main(argv=None):
     scale = None
     frame_count = 0
     start = time.time()
-    while True:
-        ok, frame = cap.read()
-        if not ok or (args.max_frames and frame_count >= args.max_frames):
-            break
-        if writer is None and args.output_video:
-            os.makedirs(os.path.dirname(args.output_video) or '.',
-                        exist_ok=True)
-            writer = cv2.VideoWriter(
-                args.output_video, cv2.VideoWriter_fourcc(*'mp4v'),
-                src_fps, (frame.shape[1], frame.shape[0]))
-        if scale is None:
-            scale = np.array([frame.shape[0] / th, frame.shape[1] / tw])
-        if args.device_preprocess:
-            # the device does BGR->RGB + resize + normalize
-            rgb_frames.append(frame)
-        else:
-            rgb_frames.append(npp.resize_rgb(frame, (th, tw),
-                                             backend=args.resize_backend))
-        bgr_frames.append(frame)
-        frame_ids.append(frame_count)
-        frame_count += 1
-        if len(rgb_frames) == args.batch_size:
-            # dispatch N+1 BEFORE draining N: the device starts the new
-            # batch without waiting for the host-side fetch + overlay
-            # rendering of the previous one
+    with profiling.recording() if args.profile else contextlib.nullcontext():
+        while True:
+            ok, frame = cap.read()
+            if not ok or (args.max_frames and frame_count >= args.max_frames):
+                break
+            if writer is None and args.output_video:
+                os.makedirs(os.path.dirname(args.output_video) or '.',
+                            exist_ok=True)
+                writer = cv2.VideoWriter(
+                    args.output_video, cv2.VideoWriter_fourcc(*'mp4v'),
+                    src_fps, (frame.shape[1], frame.shape[0]))
+            if scale is None:
+                scale = np.array([frame.shape[0] / th, frame.shape[1] / tw])
+            if args.device_preprocess:
+                # the device does BGR->RGB + resize + normalize
+                rgb_frames.append(frame)
+            else:
+                rgb_frames.append(npp.resize_rgb(frame, (th, tw),
+                                                 backend=args.resize_backend))
+            bgr_frames.append(frame)
+            frame_ids.append(frame_count)
+            frame_count += 1
+            if len(rgb_frames) == args.batch_size:
+                # dispatch N+1 BEFORE draining N: the device starts the new
+                # batch without waiting for the host-side fetch + overlay
+                # rendering of the previous one
+                out, n_real = _dispatch_batch(pipe, rgb_frames, args.batch_size)
+                if pending is not None:
+                    _drain_batch(*pending, scale, args, writer, poses_fh,
+                                 counters)
+                pending = (out, n_real, bgr_frames, frame_ids)
+                if args.pipeline_depth == 1:
+                    _drain_batch(*pending, scale, args, writer, poses_fh,
+                                 counters)
+                    pending = None
+                rgb_frames, bgr_frames, frame_ids = [], [], []
+        if rgb_frames:
             out, n_real = _dispatch_batch(pipe, rgb_frames, args.batch_size)
             if pending is not None:
-                _drain_batch(*pending, scale, args, writer, poses_fh,
-                             counters)
+                _drain_batch(*pending, scale, args, writer, poses_fh, counters)
             pending = (out, n_real, bgr_frames, frame_ids)
-            if args.pipeline_depth == 1:
-                _drain_batch(*pending, scale, args, writer, poses_fh,
-                             counters)
-                pending = None
-            rgb_frames, bgr_frames, frame_ids = [], [], []
-    if rgb_frames:
-        out, n_real = _dispatch_batch(pipe, rgb_frames, args.batch_size)
         if pending is not None:
             _drain_batch(*pending, scale, args, writer, poses_fh, counters)
-        pending = (out, n_real, bgr_frames, frame_ids)
-    if pending is not None:
-        _drain_batch(*pending, scale, args, writer, poses_fh, counters)
 
     cap.release()
     if writer is not None:
@@ -220,6 +231,8 @@ def main(argv=None):
     print(f'Processed {frame_count} frames at {th}x{tw} '
           f'(batch {args.batch_size}): {counters["poses"]} poses, '
           f'{frame_count / max(elapsed, 1e-9):.1f} FPS')
+    if args.profile:
+        print(profiling.span_table())
 
 
 if __name__ == '__main__':

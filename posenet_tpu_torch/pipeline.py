@@ -11,6 +11,11 @@ height sharded (`parallel.spatial`). With `ModelConfig.quantized` the
 trunk is the int8 one (`models.quantized`), its weights folded once when
 the pipeline is built; it runs `infer` and the data partition, and refuses
 the spatial partition and `device_resize_to`, as the JAX package's does.
+
+Each call is a `profiling.span`, `pipeline.call`, around the spans of its
+stages: `pipeline.to_device`, `pipeline.preprocess` (`infer_raw`),
+`pipeline.forward` and `pipeline.decode`. They record nothing unless a
+profiler or `profiling.recording()` is on.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from posenet_tpu_torch import profiling
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.decode import DecodedPoses, decode_batch
 from posenet_tpu_torch.models import mobilenet_v1, quantized
@@ -50,15 +56,16 @@ def to_device(frames_u8, device: torch.device) -> torch.Tensor:
     server could not queue batch N+1 while batch N runs. PyTorch's pinned
     allocator keeps the staging buffer from reuse until the copy is done.
     A copy between two cards is queued in order with the work on both."""
-    frames = torch.as_tensor(frames_u8)
-    if frames.device == device:
-        return frames
-    if device.type == 'cuda' and frames.device.type == 'cpu':
-        if not frames.is_pinned():
-            frames = torch.empty(frames.shape, dtype=frames.dtype,
-                                 pin_memory=True).copy_(frames)
-        return frames.to(device, non_blocking=True)
-    return frames.to(device, non_blocking=device.type == frames.device.type == 'cuda')
+    with profiling.span('pipeline.to_device', device):
+        frames = torch.as_tensor(frames_u8)
+        if frames.device == device:
+            return frames
+        if device.type == 'cuda' and frames.device.type == 'cpu':
+            if not frames.is_pinned():
+                frames = torch.empty(frames.shape, dtype=frames.dtype,
+                                     pin_memory=True).copy_(frames)
+            return frames.to(device, non_blocking=True)
+        return frames.to(device, non_blocking=device.type == frames.device.type == 'cuda')
 
 
 def infer(params: Dict[str, Any], frames_u8: torch.Tensor, cfg: ModelConfig,
@@ -67,14 +74,13 @@ def infer(params: Dict[str, Any], frames_u8: torch.Tensor, cfg: ModelConfig,
     frames' device. `params` must be on that device, cast as
     `mobilenet_v1.cast_params` does for `cfg.compute_dtype`, or, with
     `cfg.quantized`, folded by `quantized.quantize_params`."""
-    x = normalize(frames_u8, cfg.compute_dtype)
-    if cfg.quantized:
-        heads = quantized.forward_quantized(params, x, cfg)
-    else:
-        heads = mobilenet_v1.forward(params, x, cfg)
-    return decode_batch(
-        heads['heatmap'], heads['offset'], heads['displacement_fwd'],
-        heads['displacement_bwd'], cfg.output_stride, decode_cfg)
+    with profiling.span('pipeline.forward', frames_u8.device):
+        x = normalize(frames_u8, cfg.compute_dtype)
+        if cfg.quantized:
+            heads = quantized.forward_quantized(params, x, cfg)
+        else:
+            heads = mobilenet_v1.forward(params, x, cfg)
+    return _decode(heads, cfg, decode_cfg)
 
 
 def infer_raw(params: Dict[str, Any], frames_bgr_u8: torch.Tensor,
@@ -88,11 +94,12 @@ def infer_raw(params: Dict[str, Any], frames_bgr_u8: torch.Tensor,
     then `decode_batch`, on the frames' device; the same calls made one by
     one give the same bits. (`infer` normalizes in the compute dtype
     instead, as the JAX package's `_infer` does.)"""
-    x = preprocess_on_device(frames_bgr_u8, target_hw)
-    heads = mobilenet_v1.forward(params, x, cfg)
-    return decode_batch(
-        heads['heatmap'], heads['offset'], heads['displacement_fwd'],
-        heads['displacement_bwd'], cfg.output_stride, decode_cfg)
+    device = frames_bgr_u8.device
+    with profiling.span('pipeline.preprocess', device):
+        x = preprocess_on_device(frames_bgr_u8, target_hw)
+    with profiling.span('pipeline.forward', device):
+        heads = mobilenet_v1.forward(params, x, cfg)
+    return _decode(heads, cfg, decode_cfg)
 
 
 def infer_spatial(replicas, frames_u8: torch.Tensor, cfg: ModelConfig,
@@ -101,11 +108,19 @@ def infer_spatial(replicas, frames_u8: torch.Tensor, cfg: ModelConfig,
     the cast parameters on `devices[i]`, frames on `devices[0]`): the trunk
     and heads by `parallel.spatial.forward`, the decode of the gathered
     heads on `devices[0]`."""
-    heads = mobilenet_v1.split_heads(spatial.forward(
-        replicas, normalize(frames_u8, cfg.compute_dtype), cfg, devices))
-    return decode_batch(
-        heads['heatmap'], heads['offset'], heads['displacement_fwd'],
-        heads['displacement_bwd'], cfg.output_stride, decode_cfg)
+    with profiling.span('pipeline.forward', frames_u8.device):
+        heads = mobilenet_v1.split_heads(spatial.forward(
+            replicas, normalize(frames_u8, cfg.compute_dtype), cfg, devices))
+    return _decode(heads, cfg, decode_cfg)
+
+
+def _decode(heads: Dict[str, torch.Tensor], cfg: ModelConfig,
+            decode_cfg: DecodeConfig) -> DecodedPoses:
+    """`decode_batch` of the four NHWC heads, in the span `pipeline.decode`."""
+    with profiling.span('pipeline.decode', heads['heatmap'].device):
+        return decode_batch(
+            heads['heatmap'], heads['offset'], heads['displacement_fwd'],
+            heads['displacement_bwd'], cfg.output_stride, decode_cfg)
 
 
 def gather(outputs, device: torch.device, n: int) -> DecodedPoses:
@@ -214,14 +229,15 @@ class PoseNetPipeline:
         if frames.dtype != torch.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
             raise ValueError(f'expected (B, H, W, 3) uint8 frames, got '
                              f'{tuple(frames.shape)} {frames.dtype}')
-        if self.mesh is None:
-            return self._run(self.params, to_device(frames, self.device))
-        if self.partition == 'spatial':
-            return infer_spatial(self.replicas, to_device(frames, self.device), self.cfg,
-                                 self.decode_cfg, self.mesh.devices)
-        shards = mesh_lib.shard_batch(mesh_lib.pad_batch(frames, self.mesh), self.mesh)
-        return gather([self._run(p, x) for p, x in zip(self.replicas, shards)],
-                      self.device, frames.shape[0])
+        with profiling.span('pipeline.call', self.device):
+            if self.mesh is None:
+                return self._run(self.params, to_device(frames, self.device))
+            if self.partition == 'spatial':
+                return infer_spatial(self.replicas, to_device(frames, self.device), self.cfg,
+                                     self.decode_cfg, self.mesh.devices)
+            shards = mesh_lib.shard_batch(mesh_lib.pad_batch(frames, self.mesh), self.mesh)
+            return gather([self._run(p, x) for p, x in zip(self.replicas, shards)],
+                          self.device, frames.shape[0])
 
     def _run(self, params, frames: torch.Tensor) -> DecodedPoses:
         if self.device_resize_to is not None:

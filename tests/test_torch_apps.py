@@ -10,7 +10,7 @@ run in-process at m50 on small images, plus
   4.4e-4 px, ROADMAP Queue 3; the printed scores carry 6 decimals);
 - each app's default device, the card, raising on a host without one;
 - the benchmark CLI in both modes, with --profile;
-- `StageTimer`, `trace` and `device_time_report`.
+- the per-stage report of `profiling.span`, `trace` and `device_time_report`.
 """
 
 import json
@@ -120,8 +120,8 @@ def test_webcam_demo_capture_failure(monkeypatch):
 @pytest.mark.parametrize("batch_size", ['0', '3'])
 def test_benchmark_main(tmp_path, capsys, batch_size):
     """The per-frame loop and the batch mode, each with --profile: the
-    stage breakdown, and the trace's report (a CPU trace holds no device
-    work, and says so)."""
+    per-stage span report, and the trace's report (a CPU trace holds no
+    device work, and says so) with the pipeline's spans."""
     from posenet_tpu_torch.apps import benchmark
 
     img_dir = str(tmp_path / "in")
@@ -135,6 +135,7 @@ def test_benchmark_main(tmp_path, capsys, batch_size):
         assert 'forward' in out and 'decode' in out and 'ms/call' in out
     else:
         assert 'no device events' in out
+        assert 'pipeline.call' in out and 'pipeline.decode' in out
         assert os.path.exists(os.path.join(trace_dir, 'trace.json'))
     (tmp_path / 'empty').mkdir()
     with pytest.raises(SystemExit, match='no images found'):
@@ -291,21 +292,26 @@ def test_visualizers(tmp_path):
 
 
 def test_stage_timer():
+    """Per-stage host time from `profiling.span` under `recording()`: the
+    counts and totals of `span_report()`, no device time off the card, and
+    the table the benchmark CLI prints."""
     import time
 
-    from posenet_tpu_torch.profiling import StageTimer
+    from posenet_tpu_torch import profiling
 
-    t = StageTimer()
-    with t.stage('a'):
-        time.sleep(0.02)
-    with t.stage('b'):
-        time.sleep(0.01)
-    with t.stage('a'):
-        time.sleep(0.02)
-    assert t.counts['a'] == 2 and t.counts['b'] == 1
-    assert t.totals['a'] > t.totals['b']
-    rep = t.report()
-    assert 'a' in rep and 'ms/call' in rep
+    with profiling.recording():
+        with profiling.span('a'):
+            time.sleep(0.02)
+        with profiling.span('b'):
+            time.sleep(0.01)
+        with profiling.span('a'):
+            time.sleep(0.02)
+    rep = profiling.span_report()
+    assert rep['a']['count'] == 2 and rep['b']['count'] == 1
+    assert rep['a']['total_ms'] > rep['b']['total_ms'] >= 10.0
+    assert rep['a']['self_ms'] == rep['a']['total_ms'] and rep['a']['device_ms'] is None
+    table = profiling.span_table()
+    assert 'a' in table and 'ms/call' in table
 
 
 def test_trace_and_report(tmp_path, monkeypatch):

@@ -89,6 +89,31 @@ def test_video_demo_device_preprocess(tmp_path, capsys):
             assert max(ys) <= 60 and max(xs) <= 84   # source-resolution coords
 
 
+@pytest.mark.parametrize('device_preprocess', [False, True])
+def test_video_demo_profile_prints_the_spans(tmp_path, capsys, device_preprocess):
+    """--profile prints the pipeline's spans, one `pipeline.call` a batch
+    with its stages; `pipeline.preprocess` only where the device resizes.
+    The spans are off again after the run."""
+    from posenet_tpu_torch import profiling
+    from posenet_tpu_torch.apps import video_demo
+
+    src = str(tmp_path / 'in.mp4')
+    _write_video(src, n_frames=5, hw=(60, 84))
+    video_demo.main(['--video', src, '--resize', '33x33', '--batch_size', '2', '--profile',
+                     *(['--device_preprocess'] if device_preprocess else []), *M50])
+    out = capsys.readouterr().out
+    assert 'Processed 5 frames' in out
+    table = out.split('FPS\n', 1)[1]
+    calls = {line.split()[0]: int(line.split()[1]) for line in table.splitlines()[1:]}
+    stages = {'pipeline.call', 'pipeline.to_device', 'pipeline.forward', 'pipeline.decode'}
+    assert calls == {name: 3 for name in stages
+                     | ({'pipeline.preprocess'} if device_preprocess else set())}
+    profiling.clear()
+    with profiling.span('pipeline.call'):
+        pass
+    assert profiling.records() == []
+
+
 def test_video_demo_missing_file(tmp_path):
     from posenet_tpu_torch.apps import video_demo
 
