@@ -84,7 +84,7 @@ def fused_step(params, frames: torch.Tensor, peaked: Sequence[torch.Tensor],
                cfg: ModelConfig, dcfg: DecodeConfig):
     """The timed step: the forward on uint8 `frames`, then `decode_batch`
     on the peaked heads; returns (the forward's heads, the poses). On the
-    card the bf16 m101 s16 forward launches K2 9 times and the decode K1
+    card the bf16 m101 s16 forward launches K2 10 times and the decode K1
     once."""
     heads = mobilenet_v1.forward(params, normalize(frames, cfg.compute_dtype), cfg)
     return heads, decode_batch(*peaked, cfg.output_stride, dcfg)

@@ -27,7 +27,12 @@ no result:
    K2 against its plain version at B=2 at every (H, W, C_in, C_out) that
    a K2 layer of the four models has at 513x513 (17x17 1024->1024, m101
    s32's last, is the BM = 64 path), and at B=1 9x9 512->512 (one block,
-   a ragged pixel tile): each element within one bf16 ulp, or 2^-16. K2's
+   a ragged pixel tile); then the dilated layers: those of the benchmark's
+   cells (m101 s16 b128's layer 13, 33x33 1024->1024 at rate 2, and m101
+   s8 720p's layers 7-13 at 91x161, 512->512 and 512->1024 at rate 2,
+   1024->1024 at rate 4) at B=2, the rest of the four models' s8 layers at
+   513x513, a ragged one-block tile at rate 2 and a 5x5 map at rate 4: each
+   element within one bf16 ulp, or 2^-16. K2's
    pointwise alone (identity depthwise) on one 64x128x64 product against
    torch.matmul, to the same tolerance.
 4. float32 parity on the card, fixture m50 s16 weights, synthesized photos:
@@ -41,14 +46,14 @@ no result:
 5. the main path: PoseNetPipeline over load_model(101, 16, bf16, random
    init) on 8 uint8 513x513 frames, then decode_batch on peaked heads.
    Shapes, finite values, >=1 pose per peaked image, K1's launch count and
-   K2's (9, one forward) over exactly this run. Then the raw-frame path
+   K2's (10, one forward) over exactly this run. Then the raw-frame path
    (device_resize_to=(513, 513)) on 16 BGR 720x1280 frames, with its own
    counts: shapes, finite values, equal to preprocess -> forward -> decode
    chained by hand.
 6. serving, m101 s16 bf16 513x513, min_pose_score 0 so that poses come
    out: (a) export a `cuda` artifact at batch sizes (1, 8) with
    `torch.export`, load it, and hold it bitwise to PoseNetPipeline on 8
-   frames, with K2 launched 9 times and K1 at least once by the loaded
+   frames, with K2 launched 10 times and K1 at least once by the loaded
    program, every K2 input a view of the previous layer, no copy, and
    K1's row inputs views of the heads tensor (the scores of its sigmoid);
    (b) PoseServer over the artifact and over LivePipelineBackend on
@@ -71,7 +76,10 @@ no result:
    img/s; `_prepare_decode` at b128 (CUDA graph and CUDA events) beside
    the row copies it no longer makes; per K2 layer at b128, K2 held to its
    plain version (one bf16 ulp, or 2^-16) and then timed against it and
-   against the cuDNN conv pair the trunk ran before, beside its bound; K1
+   against the cuDNN conv pair the trunk ran before, beside its bound, and
+   the same for each dilated layer of the benchmark's cells at the cell's
+   batch (b128 33x33 at rate 2; b4 91x161 at rates 2 and 4), the cuDNN
+   pair there dilated as the trunk ran it before K2 took those layers; K1
    at B=128, K=128, held to its plain version and timed against it, by
    CUDA graph replay (the device alone) and per call by CUDA events (host
    dispatch included), beside its bound (the hops that fetch in this run's
@@ -111,13 +119,13 @@ no result:
    max |grad| (the displacement heads, which the loss does not read,
    exactly 0), no K2 launch. (2) The same in bf16, K2 on the card against
    its plain version on the CPU: the heads of the forward within 2e-3,
-   the loss gap and the gradient gap printed, 9 K2 launches. (3) `train()`
+   the loss gap and the gradient gap printed, 10 K2 launches. (3) `train()`
    on the card, float32 (with visual dumps) and bf16, b16, 2 epochs, lr
    1e-4, eval with pose metrics on the same 16 images: finite losses, the
    trunk bitwise unchanged, the heads moved, the eval loss lower after
    than before and the second epoch's train loss (the same 16 images)
    below the first's, the latest checkpoint restored bitwise with its Adam
-   moments; K2 launched 9 times for each bf16 forward (a step, an eval
+   moments; K2 launched 10 times for each bf16 forward (a step, an eval
    loss, an eval decode an epoch), none in float32; K1 once for each eval
    batch and visual dump. (4) `posenet-export-torch --from_checkpoint` of
    the bf16 run's checkpoint to a `cuda` artifact, bitwise equal to
@@ -136,11 +144,11 @@ no result:
    frames over 2 shards and over every visible card, and of an uneven 129
    over 2: per shard its heads against the unsharded forward's rows,
    bitwise or within the bf16 bar 2e-3 (which held is printed), and its
-   poses bitwise wherever its heads are; K2 launched 9 times and K1 once
+   poses bitwise wherever its heads are; K2 launched 10 times and K1 once
    a shard. (b) The spatial partition of one frame, trunk biases + 1.0,
    over 2 and 4 shards, bf16 and float32: the gathered heads against the
    unsharded heads (2e-3; 1e-4 of each head's scale in float32), the
-   poses bitwise where the heads are; K2 9 times a shard, K1 once. (c)
+   poses bitwise where the heads are; K2 10 times a shard, K1 once. (c)
    The data-parallel train step at b16 on phase 9's dataset, world size 1
    over NCCL, against the single-device step, float32 and bf16: loss,
    head gradients and heads after Adam bitwise; then 2 gloo ranks on the
@@ -183,16 +191,16 @@ no result:
    steps): its JSON line, the card's `name, power.limit` in it, >= 1 pose
    per peaked image on average (the walk follows random displacements, so
    an image may accept none), and one `bench_torch.fused_step` (the
-   function phase 7 times) launching K2 9 times and K1 once. (b)
+   function phase 7 times) launching K2 10 times and K1 once. (b)
    `tools/profile_fused_torch.py` at b128: the busy ms a step, the traced
    window's wall ms, the idle share and device ms by kind of kernel. (c)
    `benchmark_suite_torch.py` configs 1-7 at --iters 8, each line with the
    card and its launches in one step: both kernels in configs 1-4 (K2 as
-   many times as the model has stride-1 rate-1 layers), K1 only in 6, K2
+   many times as the model has stride-1 separable layers), K1 only in 6, K2
    only in 7, neither in 5. (d) `decode.decode_single` on the card against
    the CPU, bitwise, one K1 launch a call, at 33x33 s16 and 91x161 s8;
    `mobilenet_v1.backbone_features` m101 s16 bf16 at 1x257x257 through K2
-   (9 launches) against its plain version on the CPU, within 2e-3 of the
+   (10 launches) against its plain version on the CPU, within 2e-3 of the
    features' scale, max(1, max |feature|), NHWC. (e)
    `tools/verify_spatial_large_torch.py`: the spatial partition at 513x513
    s16 and 721x1281 s8 over ['cuda:0'] * 8 (every card in turn on a host
@@ -292,16 +300,30 @@ K1_SOURCE = 'posenet_tpu_torch/csrc/traversal.cu'
 K1_REPLACES = 'posenet_tpu/ops/pallas/traversal.py:551'
 K2_SOURCE = 'posenet_tpu_torch/csrc/sepconv.cu'
 K2_REPLACES = 'posenet_tpu/ops/pallas/sepconv.py:228'
-# (H, W, C_in, C_out, K2 layers of one m101 s16 513x513 forward at this
-# shape), then the other K2 layers of the four models at 513x513: the
-# C_in 16 and 24 stems of m50 and m75, m101 s32's last (the BM = 64 path),
-# and the rest of m50, m75 and m101 s8.
+# (H, W, C_in, C_out, rate-1 K2 layers of one m101 s16 513x513 forward at
+# this shape), then the other rate-1 K2 layers of the four models at
+# 513x513: the C_in 16 and 24 stems of m50 and m75, m101 s32's last (the
+# BM = 64 path), and the rest of m50, m75 and m101 s8.
 K2_M101_SHAPES = ((257, 257, 32, 64, 1), (129, 129, 128, 128, 1), (65, 65, 256, 256, 1),
                   (33, 33, 512, 512, 5), (33, 33, 512, 1024, 1))
 K2_OTHER_SHAPES = ((257, 257, 16, 32, 0), (257, 257, 24, 48, 0), (17, 17, 1024, 1024, 0),
                    (129, 129, 64, 64, 0), (129, 129, 96, 96, 0), (65, 65, 128, 256, 0),
                    (65, 65, 192, 192, 0), (65, 65, 192, 384, 0), (65, 65, 256, 512, 0),
                    (33, 33, 256, 256, 0), (33, 33, 384, 384, 0))
+# The dilated K2 layers of the benchmark's cells: (cell, batch, H, W, C_in,
+# C_out, rate, layers of one forward at this shape): m101 s16 513x513
+# b128's layer 13; m101 s8 721x1281 b4's layers 7-11, 12 and 13.
+K2_DILATED_CELL_SHAPES = (
+    ('m101-s16.offline-b128', 128, 33, 33, 1024, 1024, 2, 1),
+    ('m101-s8.offline-720p-b4', 4, 91, 161, 512, 512, 2, 5),
+    ('m101-s8.offline-720p-b4', 4, 91, 161, 512, 1024, 2, 1),
+    ('m101-s8.offline-720p-b4', 4, 91, 161, 1024, 1024, 4, 1))
+# (H, W, C_in, C_out, rate): the other dilated layers of the four models at
+# 513x513 (m50, m75 and m101 at s8), a ragged one-block pixel tile, a map
+# smaller than the taps' reach, and C_in 64 (the BN = 16 fallback).
+K2_OTHER_DILATED = ((65, 65, 256, 256, 2), (65, 65, 384, 384, 2), (65, 65, 512, 512, 2),
+                    (65, 65, 512, 1024, 2), (65, 65, 1024, 1024, 4), (9, 9, 512, 512, 2),
+                    (5, 5, 1024, 1024, 4), (11, 19, 64, 48, 2))
 HEAD_ORDER = ('heatmap', 'offset', 'displacement_fwd', 'displacement_bwd')
 HBM_BYTES_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -434,13 +456,13 @@ def k2_inputs(b, h, w, c_in, c_out, seed, device):
     return x, taps, dw_b, pw_w, pw_b
 
 
-def k2_against_plain(args):
+def k2_against_plain(args, rate=1):
     """(within tolerance, max abs difference, share bitwise equal) of K2
-    against its plain version: each element within one bf16 ulp of the
-    plain value, or 2^-16 (tests/test_torch_sepconv.py)."""
-    got = sepconv.sepconv(*args).float()
+    against its plain version at dilation `rate`: each element within one
+    bf16 ulp of the plain value, or 2^-16 (tests/test_torch_sepconv.py)."""
+    got = sepconv.sepconv(*args, rate=rate).float()
     torch.cuda.synchronize()
-    ref = sepconv.sepconv_reference(*args).float()
+    ref = sepconv.sepconv_reference(*args, rate).float()
     diff = (got - ref).abs()
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
     ok = bool((diff <= ulp.clamp_min(2.0 ** -16)).all())
@@ -642,14 +664,14 @@ def serving_phase(model, dev):
         out = art(frames8)
         torch.cuda.synchronize()
         k1, k2 = traversal.launches, sepconv.launches
-        check(k2 == 9 and k1 >= 1, f'the loaded artifact launched K1 {k1} and K2 {k2} times')
+        check(k2 == 10 and k1 >= 1, f'the loaded artifact launched K1 {k1} and K2 {k2} times')
         for f, a, b in zip(DecodedPoses._fields, out, ref):
             check(torch.equal(a, b), f'artifact b8 differs from PoseNetPipeline in {f}')
         for b in (1, 8):   # K2 reads the previous layer's output in place
             made_by = [n.args[0].target for n in art._program(b).graph.nodes
                        if n.target == torch.ops.posenet_tpu_torch.sepconv.default]
-            check(made_by == [torch.ops.aten.permute.default] * 9,
-                  f'b{b} program: the K2 inputs are made by {made_by}, not 9 views (permute)')
+            check(made_by == [torch.ops.aten.permute.default] * 10,
+                  f'b{b} program: the K2 inputs are made by {made_by}, not 10 views (permute)')
         k1_inputs = [k1_reads_heads_in_place(art._program(b).graph) for b in (1, 8)]
         check(all(torch.equal(a, b) for a, b in zip(art(frames8[:1]), pipe(frames8[:1]))),
               'artifact b1 differs from PoseNetPipeline')
@@ -901,17 +923,23 @@ def k1_checks(dev) -> float:
 
 
 def k2_checks(dev) -> float:
-    """Phase 3, K2: against its plain version at every K2 shape, the
-    ragged one-block tile, and the pointwise alone against torch.matmul;
-    returns the max abs difference."""
+    """Phase 3, K2: against its plain version at every K2 shape, rate 1
+    and dilated, the ragged one-block tiles, and the pointwise alone
+    against torch.matmul; returns the max abs difference."""
     k2_err = 0.0
-    shapes = [(2, h, w, c_in, c_out) for h, w, c_in, c_out, _ in K2_M101_SHAPES + K2_OTHER_SHAPES]
-    for i, (b, h, w, c_in, c_out) in enumerate(shapes + [(1, 9, 9, 512, 512)]):
-        ok, err, equal = k2_against_plain(k2_inputs(b, h, w, c_in, c_out, i, dev))
+    shapes = [(2, h, w, c_in, c_out, 1)
+              for h, w, c_in, c_out, _ in K2_M101_SHAPES + K2_OTHER_SHAPES]
+    shapes += [(1, 9, 9, 512, 512, 1)]
+    shapes += [(2, h, w, c_in, c_out, r)
+               for _, _, h, w, c_in, c_out, r, _ in K2_DILATED_CELL_SHAPES]
+    shapes += [(1 if h < 33 else 2, h, w, c_in, c_out, r)
+               for h, w, c_in, c_out, r in K2_OTHER_DILATED]
+    for i, (b, h, w, c_in, c_out, rate) in enumerate(shapes):
+        ok, err, equal = k2_against_plain(k2_inputs(b, h, w, c_in, c_out, i, dev), rate)
         k2_err = max(k2_err, err)
         check(ok, f'K2 differs from its plain version at B={b} {h}x{w} {c_in}->{c_out} '
-                  f'beyond one bf16 ulp (max {err})')
-        print(f'K2 vs plain: B={b} {h}x{w} {c_in}->{c_out}: within one bf16 ulp '
+                  f'rate {rate} beyond one bf16 ulp (max {err})')
+        print(f'K2 vs plain: B={b} {h}x{w} {c_in}->{c_out} rate {rate}: within one bf16 ulp '
               f'(or 2^-16), max abs {err:.3g}, share bitwise equal {equal:.6f}', flush=True)
     # The pointwise alone: with the centre tap 1, the others and the bias 0,
     # the depthwise of x in [0, 6) is x, so K2 is relu6(x @ pw^T + pw_b).
@@ -931,32 +959,40 @@ def k2_checks(dev) -> float:
 
 
 def k2_trunk_launches(dev) -> int:
-    """bf16 m101 s16 heads at 2x65x65, the trunk through K2 on the card
-    against its plain version on the CPU; returns K2's launches (9)."""
-    cfg_bf16 = ModelConfig(model_id=101, output_stride=16, compute_dtype=torch.bfloat16)
-    p101 = mobilenet_v1.init_params(torch.Generator().manual_seed(5), cfg_bf16)
+    """bf16 m101 heads at 2x65x65, s16 and s8, the trunk through K2 on the
+    card against its plain version on the CPU; returns K2's launches at
+    s16 (10: layer 13 at rate 2; 11 at s8, layers 7-13 dilated)."""
     x65 = torch.from_numpy(np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3))
                            .astype(np.float32))
-    ref_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16), x65,
-                                    cfg_bf16)
-    sepconv.launches = 0
-    got_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16, dev),
-                                    x65.to(dev), cfg_bf16)
-    torch.cuda.synchronize()
-    gap = max(float((got_bf16[k].cpu() - ref_bf16[k]).abs().max()) for k in ref_bf16)
-    check(sepconv.launches == 9, f'bf16 m101 s16 forward launched K2 {sepconv.launches} times')
-    check(gap <= 2e-3, f'bf16 heads, K2 on CUDA vs plain on CPU: {gap} (limit 2e-3)')
-    print(f'bf16 heads m101 s16 2x65x65, trunk through K2 (CUDA) vs its plain version '
-          f'(CPU): within {gap:.3g} (limit 2e-3); K2 launches 9', flush=True)
-    return sepconv.launches
+    launches = {}
+    for stride, want in ((16, 10), (8, 11)):
+        cfg_bf16 = ModelConfig(model_id=101, output_stride=stride, compute_dtype=torch.bfloat16)
+        p101 = mobilenet_v1.init_params(torch.Generator().manual_seed(5), cfg_bf16)
+        ref_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16), x65,
+                                        cfg_bf16)
+        sepconv.launches = 0
+        got_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16, dev),
+                                        x65.to(dev), cfg_bf16)
+        torch.cuda.synchronize()
+        launches[stride] = sepconv.launches
+        gap = max(float((got_bf16[k].cpu() - ref_bf16[k]).abs().max()) for k in ref_bf16)
+        check(launches[stride] == want,
+              f'bf16 m101 s{stride} forward launched K2 {launches[stride]} times, not {want}')
+        check(gap <= 2e-3, f'bf16 heads s{stride}, K2 on CUDA vs plain on CPU: {gap} '
+                           f'(limit 2e-3)')
+        print(f'bf16 heads m101 s{stride} 2x65x65, trunk through K2 (CUDA) vs its plain '
+              f'version (CPU): within {gap:.3g} (limit 2e-3); K2 launches {launches[stride]}',
+              flush=True)
+    return launches[16]
 
 
 def k2_timing(dev, batch=128):
     """Phase 7, K2: each m101 s16 layer at batch 128, K2 against its plain
     version and the cuDNN conv pair the trunk ran before, in turns, beside
     its bound, after holding K2 against its plain version on the same
-    inputs. Returns the sums over one forward's 9 layers, what bounds the
-    most of the bound's sum, and the max abs difference."""
+    inputs. Returns the sums over one forward's 9 rate-1 layers, what
+    bounds the most of the bound's sum, the max abs difference, and the
+    dilated layers' sums by cell (`k2_dilated_timing`)."""
     k2_ms = k2_plain_ms = pair_ms = err_max = 0.0
     bound_by_ms = {'bytes': 0.0, 'operations': 0.0}
     for i, (h, w, c_in, c_out, count) in enumerate(K2_M101_SHAPES):
@@ -997,11 +1033,64 @@ def k2_timing(dev, batch=128):
               f'{runs})', flush=True)
         del args, x, x_nchw
     bound_sum = sum(bound_by_ms.values())
-    print(f'K2 over the 9 layers of one m101 s16 b{batch} forward: kernel {k2_ms:.4f} ms, '
-          f'cuDNN pair {pair_ms:.4f} ms, bound {bound_sum:.4f} ms, kernel / bound '
-          f'{k2_ms / bound_sum:.1f}x, plain {k2_plain_ms:.4f} ms', flush=True)
+    print(f'K2 over the 9 rate-1 layers of one m101 s16 b{batch} forward: kernel '
+          f'{k2_ms:.4f} ms, cuDNN pair {pair_ms:.4f} ms, bound {bound_sum:.4f} ms, kernel / '
+          f'bound {k2_ms / bound_sum:.1f}x, plain {k2_plain_ms:.4f} ms', flush=True)
+    dilated, dilated_err = k2_dilated_timing(dev)
     return (k2_ms, k2_plain_ms, pair_ms, bound_sum, max(bound_by_ms, key=bound_by_ms.get),
-            err_max)
+            max(err_max, dilated_err), dilated)
+
+
+def k2_dilated_timing(dev):
+    """Phase 7, K2's dilated layers: each dilated layer of the benchmark's
+    cells at the cell's batch, held to its plain version, then timed in
+    turns against it and against the dilated cuDNN conv pair (with its
+    bias and ReLU6 passes) that the trunk ran there before, beside its
+    bound. Returns ({cell: sums over one forward's dilated layers}, the
+    max abs difference)."""
+    sums, err_max = {}, 0.0
+    for i, (cell, b, h, w, c_in, c_out, rate, count) in enumerate(K2_DILATED_CELL_SHAPES):
+        args = k2_inputs(b, h, w, c_in, c_out, 200 + i, dev)
+        x, taps, dw_b, pw_w, pw_b = args
+        x_nchw = x.permute(0, 3, 1, 2)
+        dw_oihw = taps.t().reshape(c_in, 1, 3, 3).contiguous()
+        pw_oihw = pw_w.reshape(c_out, c_in, 1, 1)
+        ok, err, equal = k2_against_plain(args, rate)
+        err_max = max(err_max, err)
+        what = f'B={b} {h}x{w} {c_in}->{c_out} rate {rate}'
+        check(ok, f'K2 differs from its plain version at {what} beyond one bf16 ulp (max {err})')
+
+        def pair():
+            y = mobilenet_v1._conv_relu6(x_nchw, dw_oihw, dw_b, dilation=rate, groups=c_in)
+            return mobilenet_v1._conv_relu6(y, pw_oihw, pw_b)
+
+        runs = {}
+        for name, fn, iters in (('plain', sepconv.sepconv_reference, 3),
+                                ('kernel', sepconv.sepconv, 20),
+                                ('cudnn', None, 20), ('cudnn', None, 20),
+                                ('kernel', sepconv.sepconv, 20),
+                                ('plain', sepconv.sepconv_reference, 3)):
+            call = pair if fn is None else (lambda fn=fn: fn(*args, rate))
+            runs.setdefault(name, []).append(cuda_ms(call, iters))
+        ms = {k: sum(v) / len(v) for k, v in runs.items()}
+        bound, bound_by = k2_bound_ms(b, h, w, c_in, c_out)
+        cell_sums = sums.setdefault(cell, {'layers': 0, 'ms': 0.0, 'library_ms': 0.0,
+                                           'bound_ms': 0.0, 'plain_ms': 0.0})
+        for key, v in (('layers', 1), ('ms', ms['kernel']), ('library_ms', ms['cudnn']),
+                       ('bound_ms', bound), ('plain_ms', ms['plain'])):
+            cell_sums[key] += count * v
+        print(f'K2 dilated layer {cell} {what} (x{count} a forward): kernel {ms["kernel"]:.4f} '
+              f'ms, dilated cuDNN pair {ms["cudnn"]:.4f} ms, bound {bound:.4f} ms ({bound_by}), '
+              f'kernel / bound {ms["kernel"] / bound:.1f}x, plain {ms["plain"]:.4f} ms; within '
+              f'one bf16 ulp of plain, max abs {err:.3g}, share bitwise equal {equal:.6f} (runs '
+              f'plain, kernel, cudnn, cudnn, kernel, plain: {runs})', flush=True)
+        del args, x, x_nchw
+    for cell, v in sums.items():
+        print(f'K2 over the {v["layers"]} dilated layers of one {cell} forward: kernel '
+              f'{v["ms"]:.4f} ms, dilated cuDNN pair {v["library_ms"]:.4f} ms, bound '
+              f'{v["bound_ms"]:.4f} ms, kernel / bound {v["ms"] / v["bound_ms"]:.1f}x, plain '
+              f'{v["plain_ms"]:.4f} ms', flush=True)
+    return sums, err_max
 
 
 def k1_timing(dev, peaked, cfg) -> dict:
@@ -1064,12 +1153,12 @@ def k1_entry(launches, err, timing) -> dict:
 
 def k2_entry(launches, err, timing) -> dict:
     """K2's entry of the kernels line; `library_ms` is the cuDNN pair's."""
-    k2_ms, plain_ms, pair_ms, bound, bound_by, timing_err = timing
+    k2_ms, plain_ms, pair_ms, bound, bound_by, timing_err, dilated = timing
     return {'name': 'sepconv', 'route': 'cuda', 'source': K2_SOURCE,
             'replaces': K2_REPLACES, 'launches': launches,
             'max_abs_err': max(err, timing_err),
             'ms': k2_ms, 'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': bound_by, 'library_ms': pair_ms}
+            'bound_by': bound_by, 'library_ms': pair_ms, 'dilated': dilated}
 
 
 class FakeCapture:
@@ -1497,7 +1586,7 @@ def train_cfgs(dtype, **kw):
 
 
 def k2_per_forward(mcfg) -> int:
-    """The fused block's layers in one forward of `mcfg` (9 for m101 s16 bf16)."""
+    """The fused block's layers in one forward of `mcfg` (10 for m101 s16 bf16)."""
     return sum(mobilenet_v1.uses_sepconv(layer, mcfg)
                for layer in mobilenet_v1.stride_plan(mcfg.model_id, mcfg.output_stride))
 
@@ -2275,13 +2364,13 @@ def multicard(smi) -> tuple:
         traversal.launches = sepconv.launches = 0
         out = art(frames[:8])
         torch.cuda.synchronize()
-        check(traversal.launches == n and sepconv.launches == 9 * n,
+        check(traversal.launches == n and sepconv.launches == 10 * n,
               f'artifact over {n} cards launched K1 {traversal.launches}, K2 '
               f'{sepconv.launches} times')
         for f, a, b in zip(DecodedPoses._fields, out, ref):
             check(torch.equal(a, b), f'artifact over {n} cards differs from the pipeline in {f}')
         print(f'serving: artifact with data_parallel_devices={n}, loaded over {n} cards, b8 '
-              f'bitwise equal to PoseNetPipeline; K1 launches {n}, K2 {9 * n}', flush=True)
+              f'bitwise equal to PoseNetPipeline; K1 launches {n}, K2 {10 * n}', flush=True)
 
     layout_timing(model, inflated, dcfg, frames[:128], {'one card': None, f'{n} cards': devs},
                   {'one card': None, f'{n} cards': devs}, smi)
@@ -2685,7 +2774,7 @@ def phase12_single_and_features(dev) -> dict:
     k2 = sepconv.launches
     scale = max(1.0, float(ref.float().abs().max()))
     gap = float((got.cpu().float() - ref.float()).abs().max())
-    check(k2 == 9, f'backbone_features m101 s16 bf16 launched K2 {k2} times')
+    check(k2 == 10, f'backbone_features m101 s16 bf16 launched K2 {k2} times')
     check(got.shape == ref.shape == (1, 17, 17, 1024) and got.dtype == torch.bfloat16
           and got.is_contiguous(), f'backbone_features: {tuple(got.shape)} {got.dtype}')
     check(gap <= 2e-3 * scale, f'backbone_features bf16, K2 on the card vs plain on the CPU: '
@@ -2715,7 +2804,7 @@ def phase12(dev, smi) -> tuple:
     bench_torch.fused_step(params, frames, peaked, cfg, dcfg)
     torch.cuda.synchronize()
     step = {'K1': traversal.launches, 'K2': sepconv.launches}
-    check(step == {'K1': 1, 'K2': 9} == extra['launches_per_step'],
+    check(step == {'K1': 1, 'K2': 10} == extra['launches_per_step'],
           f'bench_torch fused_step launched {step} (its own count {extra["launches_per_step"]})')
     k1['bench_torch fused_step b128 (phase 12)'] = step['K1']
     k2['bench_torch fused_step b128 (phase 12)'] = step['K2']
@@ -2741,9 +2830,9 @@ def phase12(dev, smi) -> tuple:
 
     # (c) the suite's seven configs at reduced iterations
     expected = {1: (1, k2_per_forward(ModelConfig(50, 16, compute_dtype=torch.bfloat16))),
-                2: (1, 9), 3: (1, k2_per_forward(ModelConfig(101, 8,
-                                                             compute_dtype=torch.bfloat16))),
-                4: (1, 9), 5: (0, 0), 6: (1, 0), 7: (0, 9)}
+                2: (1, 10), 3: (1, k2_per_forward(ModelConfig(101, 8,
+                                                              compute_dtype=torch.bfloat16))),
+                4: (1, 10), 5: (0, 0), 6: (1, 0), 7: (0, 10)}
     lines = benchmark_suite_torch.main(['--configs', '1,2,3,4,5,6,7', '--iters', '8'])
     for n, line in zip(sorted(expected), lines):
         got = (line['launches']['K1'], line['launches']['K2'])
@@ -2865,8 +2954,8 @@ def full_run(dev, smi) -> list:
     launches = traversal.launches
     k2_launches = sepconv.launches
     check(launches >= 2, f'K1 launched {launches} times on the main path')
-    check(k2_launches == 9, f'K2 launched {k2_launches} times on the main path (one '
-                            f'm101 s16 forward has 9 stride-1 rate-1 separable layers)')
+    check(k2_launches == 10, f'K2 launched {k2_launches} times on the main path (one '
+                             f'm101 s16 forward has 10 stride-1 separable layers)')
     for out in (poses, peaked_poses):
         check(tuple(out.keypoint_coords.shape) == (8, 10, 17, 2),
               f'keypoint_coords shape {tuple(out.keypoint_coords.shape)}')
@@ -2891,7 +2980,7 @@ def full_run(dev, smi) -> list:
     raw_poses = raw_pipe(bgr16)
     torch.cuda.synchronize()
     raw_k1, raw_k2 = traversal.launches, sepconv.launches
-    check(raw_k1 >= 1 and raw_k2 == 9,
+    check(raw_k1 >= 1 and raw_k2 == 10,
           f'raw-frame path launched K1 {raw_k1} and K2 {raw_k2} times')
     check(tuple(raw_poses.keypoint_coords.shape) == (16, 10, 17, 2),
           f'raw keypoint_coords shape {tuple(raw_poses.keypoint_coords.shape)}')

@@ -1,6 +1,10 @@
 // K2: the fused separable conv block of the MobileNetV1 trunk, for Hopper.
-//   out = relu6(pw1x1(bf16(relu6(dw3x3(x) + dw_b))) + pw_b)
-// stride 1, dilation 1, zero "same" padding, NHWC bf16 in and out.
+//   out = relu6(pw1x1(bf16(relu6(dw3x3_rate(x) + dw_b))) + pw_b)
+// stride 1, dilation `rate` >= 1 (the depthwise's taps at (y + dy * rate,
+// x + dx * rate), dy, dx in -1, 0, 1), zero "same" padding of `rate` on
+// every side, NHWC bf16 in and out. Rate 1 takes the stride-1 layers up to
+// the output stride; rates 2 and 4 the dilated layers past it (m101 s16's
+// layer 13 at rate 2; at s8 layers 7-13, m101's 13 at rate 4).
 //
 // Replaces the TPU kernel `sepconv_pallas` (posenet_tpu/ops/pallas/
 // sepconv.py:228, body `_sepconv_kernel` :72). The numerics are that
@@ -17,6 +21,12 @@
 //    65^2 256->256   HBM, 0.55 GB         0.165 ms
 //    33^2 512->512   HBM, 0.29 GB         0.085 ms (73 GFLOP: 0.074 ms)
 //    33^2 512->1024  tensor cores, 146 GFLOP  0.148 ms
+// and of the dilated layers of the benchmark's cells:
+//    33^2 1024->1024 rate 2, b128 (m101 s16's layer 13)   tensor cores, 292 GFLOP  0.296 ms
+//    91x161 512->512 rate 2, b4 (m101 s8's 7-11)          HBM, 0.12 GB             0.036 ms
+//    91x161 512->1024 rate 2, b4 (layer 12)               tensor cores, 61 GFLOP   0.062 ms
+//    91x161 1024->1024 rate 4, b4 (layer 13)              tensor cores, 123 GFLOP  0.124 ms
+// The rate moves where the taps lie, not the bytes or the products.
 // Every layer sits near the ridge or below it, so the kernel has to keep
 // the intermediate out of device memory, read each weight byte from L2 as
 // few times as it can, and keep the tensor cores fed while it does.
@@ -30,8 +40,9 @@
 //      wgmma reads: K-major panels of 64 channels (128 bytes a row), the
 //      16-byte chunk index XOR (row mod 8) (the 128-byte swizzle). A thread
 //      keeps 8 channels over a run of consecutive pixels (and from C_in 128
-//      their 9 taps in registers), sliding its 3x3 window along a row, so
-//      that a pixel costs 3 new 16-byte loads, not 9. Channels from C_in up to the panel's end
+//      their 9 taps in registers). At rate 1 it slides its 3x3 window along
+//      a row, so that a pixel costs 3 new 16-byte loads, not 9; at rate > 1
+//      each pixel loads its 9 (below). Channels from C_in up to the panel's end
 //      are zeros: the C_in 16, 24 and 32 stems take one zero-padded panel,
 //      which costs shared memory and a few products on zeros, not time,
 //      since those layers are bound by memory, not by the tensor cores.
@@ -73,6 +84,30 @@
 // the per-block overhead of the 66K blocks at 257^2, and, at C_in 512, the
 // weights' L2 traffic, which only a larger pixel tile or a cluster
 // multicast of the weight tiles would cut.
+//
+// The dilated layers. A rate-r pixel's taps share no column with its
+// neighbour's, so the sliding window does not apply as it is. Two ways were
+// measured (NVIDIA H100 80GB HBM3, 700 W, CUDA events, variants in turns):
+// (a) visit a run's pixels in r passes of stride r, x, x + r, x + 2r, ...,
+// each writing its own A-tile row, so that the window slides and a pixel
+// still costs 3 new loads; (b) load all 9 taps of every pixel, in order,
+// and let L1 and L2 serve the repeated reads (each input row is read by 3
+// output rows and each column by 3 pixels). (b) was as fast or faster at
+// every dilated shape, ms a layer (a) / (b): b128 33^2 1024->1024 r2
+// 2.026 / 2.019; b4 91x161 512->512 r2 0.253 / 0.218, 512->1024 r2
+// 0.383 / 0.349, 1024->1024 r4 0.849 / 0.841; b16 65^2 r2 256->256
+// 0.118 / 0.101, 384->384 0.206 / 0.178, 512->512 0.299 / 0.259. (a)'s
+// passes need more registers (128 with 104 bytes of spills at 512 threads,
+// 162 at 256) and issue their loads three at a time; (b)'s 9 independent
+// loads keep more in flight with no spill. So the rate > 1 instantiations
+// (kDilated, only BN 128 and BN 16, at BM 128 / WG 4 up to C_in 512 and
+// BM 64 / WG 2 above, the configurations of C_in 256 to 1024 that every
+// dilated layer of the four models has) take (b); the rate-1 ones are the
+// code they were, rate a constant 1. The dilated layers run at 6.0-7.2x
+// their bound (PERF.md), where the rate-1 layers run at 4.2x: at C_in 512
+// the 9 loads a pixel; at 1024->1024 (BM 64) the weights' L2 traffic, a
+// 2 MB weight matrix read again for every 64 pixels, as at m101 s32's
+// last layer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -297,7 +332,7 @@ __device__ __forceinline__ float relu6(float v) {
   return fminf(fmaxf(v, 0.0f), 6.0f);
 }
 
-template <int BM, int BN, int WG, bool kTapRegs>
+template <int BM, int BN, int WG, bool kTapRegs, bool kDilated>
 __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
     const __nv_bfloat16* __restrict__ x,    // (B, H, W, C_in)
     const __nv_bfloat16* __restrict__ dw,   // (9, C_in), tap = dy * 3 + dx
@@ -305,10 +340,12 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
     const __nv_bfloat16* __restrict__ pw,   // (C_out, C_in)
     const float* __restrict__ pw_b,         // (C_out,)
     __nv_bfloat16* __restrict__ out,        // (B, H, W, C_out)
-    int64_t m_total, int h, int w, int c_in, int c_out) {
+    int64_t m_total, int h, int w, int c_in, int c_out, int rate_arg) {
   // WG warpgroups: all of them compute the depthwise; the first BM / 64
   // run the products and the epilogue, one for each 64 pixels.
   constexpr int kThreads = 128 * WG;
+  // The dilation rate: a constant 1 in the rate-1 instantiations.
+  const int rate = kDilated ? rate_arg : 1;
   constexpr int kSlot = BN * kRow;    // bytes of a ring stage = 64 x BN bf16
   constexpr int kChunks = BN / 8;     // 16-byte chunks of an output row's slice
   // Staging swizzle: chunk XOR (row mod kSwz), within a row of kChunks.
@@ -344,14 +381,16 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
 #pragma unroll
   for (int t = 0; t < kStages - 2; ++t) load_stage(t);
 
-  // 1. depthwise 3x3 + bias + ReLU6 -> bf16 A tile. Thread (lane, g) takes
-  // channels 8g..8g+7 of a run of consecutive pixels of the tile, so its 9
-  // taps and 8 biases load once and its pixel's (y, x) advance without a
-  // division. A warp's loads are 16-byte vectors over contiguous channels.
-  // Along a row the 3x3 window slides: 3 new loads a pixel, not 9. The
-  // loads of a pixel are unconditional, so that they are in flight
-  // together: a tap off the image reads x[0] and adds zero, as the plain
-  // version's zero padding does.
+  // 1. depthwise 3x3, taps `rate` pixels apart, + bias + ReLU6 -> bf16 A
+  // tile. Thread (lane, g) takes channels 8g..8g+7 of a run of consecutive
+  // pixels of the tile, so its 9 taps and 8 biases load once and its
+  // pixel's (y, x) advance without a division. A warp's loads are 16-byte
+  // vectors over contiguous channels. At rate 1 the 3x3 window slides
+  // along a row: 3 new loads a pixel, not 9. At rate > 1 a pixel's taps
+  // share nothing with its neighbour's, and each pixel loads its 9 (see
+  // the note at the top). The loads of a pixel are unconditional, so that
+  // they are in flight together: a tap off the image reads x[0] and adds
+  // zero, as the plain version's zero padding does.
   const int groups = c_in / 8;             // at most kThreads (C_in <= 16 * BM)
   const int lanes = kThreads / groups;
   const int run = (BM + lanes - 1) / lanes;
@@ -377,7 +416,7 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
     int y = rem / w;
     int xq = rem - y * w;
     uint4 xt[9];        // the window, tap t = (dy + 1) * 3 + dx + 1
-    bool fresh = true;  // the window holds nothing of this pixel's row
+    bool fresh = true;  // the window holds nothing of this pixel's taps
     for (int p = lane * run; p < p_end; ++p, ++m) {
       float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (m < m_total) {
@@ -390,9 +429,9 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
         }
 #pragma unroll
         for (int t = 0; t < 9; ++t) {
-          const int dy = t / 3 - 1;
-          const int dx = t % 3 - 1;
-          if (dx < 1 && !fresh) continue;
+          const int dy = (t / 3 - 1) * rate;
+          const int dx = (t % 3 - 1) * rate;
+          if (dx < rate && !fresh) continue;
           const bool in = y + dy >= 0 && y + dy < h && xq + dx >= 0 && xq + dx < w;
           xt[t] = *reinterpret_cast<const uint4*>(x + (in ? (m + dy * w + dx) * c_in + c : 0));
           if (!in) xt[t] = make_uint4(0u, 0u, 0u, 0u);
@@ -416,11 +455,12 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
       }
       *reinterpret_cast<uint4*>(a_s + (g >> 3) * (BM * kRow) + p * kRow +
                                 (((g & 7) ^ (p & 7)) << 4)) = pack8(acc);
-      fresh = ++xq == w;
-      if (fresh) {
+      const bool row_end = ++xq == w;
+      if (row_end) {
         xq = 0;
         if (++y == h) y = 0;
       }
+      fresh = kDilated || row_end;
     }
   }
   // Zeros in the K padding, channels C_in to the last panel's end.
@@ -504,10 +544,10 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
   }
 }
 
-template <int BM, int BN, int WG, bool kTapRegs>
+template <int BM, int BN, int WG, bool kTapRegs, bool kDilated>
 cudaError_t launch(const void* x, const void* dw, const void* dw_b, const void* pw,
                    const void* pw_b, void* out, int64_t m_total, int h, int w,
-                   int c_in, int c_out, cudaStream_t stream) {
+                   int c_in, int c_out, int rate, cudaStream_t stream) {
   // Shared memory: the A tile (C_in rounded up to 64) x BM bf16, the ring
   // of 4 x 64 x BN bf16, and 1 KB to align both to 1024 bytes. At most:
   // BM 128, C_in 512, BN 128: 128 KB + 64 KB + 1 KB = 197,632 bytes;
@@ -516,36 +556,47 @@ cudaError_t launch(const void* x, const void* dw, const void* dw_b, const void* 
   const int k_panels = (c_in + kBK - 1) / kBK;
   const size_t smem = static_cast<size_t>(k_panels) * BM * kRow +
                       static_cast<size_t>(kStages) * BN * kRow + 1024;
-  cudaError_t err = cudaFuncSetAttribute(sepconv_kernel<BM, BN, WG, kTapRegs>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = sepconv_kernel<BM, BN, WG, kTapRegs, kDilated>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int64_t blocks = (m_total + BM - 1) / BM;
-  sepconv_kernel<BM, BN, WG, kTapRegs><<<static_cast<unsigned>(blocks), 128 * WG, smem,
-                                         stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), 128 * WG, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dw),
       static_cast<const float*>(dw_b), static_cast<const __nv_bfloat16*>(pw),
       static_cast<const float*>(pw_b), static_cast<__nv_bfloat16*>(out),
-      m_total, h, w, c_in, c_out);
+      m_total, h, w, c_in, c_out, rate);
   return cudaGetLastError();
 }
 
-// BN: the widest of 128, 96, 64, 48, 32, 16 that divides C_out.
+// Rate 1: BN is the widest of 128, 96, 64, 48, 32, 16 that divides C_out.
 template <int BM, int WG, bool kTapRegs>
 cudaError_t launch_bn(const void* x, const void* dw, const void* dw_b, const void* pw,
                       const void* pw_b, void* out, int64_t m_total, int h, int w,
                       int c_in, int c_out, cudaStream_t s) {
   if (c_out % 128 == 0)
-    return launch<BM, 128, WG, kTapRegs>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    return launch<BM, 128, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
   if (c_out % 96 == 0)
-    return launch<BM, 96, WG, kTapRegs>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    return launch<BM, 96, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
   if (c_out % 64 == 0)
-    return launch<BM, 64, WG, kTapRegs>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    return launch<BM, 64, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
   if (c_out % 48 == 0)
-    return launch<BM, 48, WG, kTapRegs>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    return launch<BM, 48, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
   if (c_out % 32 == 0)
-    return launch<BM, 32, WG, kTapRegs>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
-  return launch<BM, 16, WG, kTapRegs>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    return launch<BM, 32, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
+  return launch<BM, 16, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
+}
+
+// Rate > 1: the dilated layers of the four models have C_out 256, 384, 512
+// or 1024, so BN = 128; any other C_out takes BN = 16, right but slower.
+// Four instantiations in all, so that the first build stays short.
+template <int BM, int WG>
+cudaError_t launch_dilated(const void* x, const void* dw, const void* dw_b, const void* pw,
+                           const void* pw_b, void* out, int64_t m_total, int h, int w,
+                           int c_in, int c_out, int rate, cudaStream_t s) {
+  if (c_out % 128 == 0)
+    return launch<BM, 128, WG, true, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, rate, s);
+  return launch<BM, 16, WG, true, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, rate, s);
 }
 
 }  // namespace
@@ -553,20 +604,26 @@ cudaError_t launch_bn(const void* x, const void* dw, const void* dw_b, const voi
 // Launches the block on `stream` and returns a cudaError_t (0 when the
 // launch was accepted). Pointers are device pointers to contiguous,
 // 16-byte aligned tensors; C_in % 8 == 0 and C_out % 16 == 0, both at most
-// 1024 (the wrapper checks all of it). BM = 128 up to C_in 512, else 64;
-// WG = 4 warpgroups at BM 128 from C_in 256, else 2; the taps in
-// registers from C_in 128.
+// 1024, rate >= 1 (the wrapper checks all of it). Rate 1: BM = 128 up to
+// C_in 512, else 64; WG = 4 warpgroups at BM 128 from C_in 256, else 2;
+// the taps in registers from C_in 128. Rate > 1 (the dilated layers, all
+// of C_in 256 to 1024 in the four models): BM 128 and WG 4 up to C_in 512,
+// else BM 64 and WG 2, the taps in registers.
 extern "C" int posenet_sepconv(
     const void* x, const void* dw, const void* dw_b, const void* pw,
     const void* pw_b, void* out, int b, int h, int w, int c_in, int c_out,
-    void* stream) {
+    int rate, void* stream) {
   if (c_in <= 0 || c_in > kMaxChannels || c_in % 8 || c_out <= 0 ||
-      c_out > kMaxChannels || c_out % 16)
+      c_out > kMaxChannels || c_out % 16 || rate < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t m_total = static_cast<int64_t>(b) * h * w;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (c_in > 512)
+  if (rate > 1 && c_in > 512)
+    err = launch_dilated<64, 2>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, rate, s);
+  else if (rate > 1)
+    err = launch_dilated<128, 4>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, rate, s);
+  else if (c_in > 512)
     err = launch_bn<64, 2, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
   else if (c_in >= 256)
     err = launch_bn<128, 4, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);

@@ -5,10 +5,13 @@ wrapper that picks between them by device.
 (posenet_tpu/ops/pallas/sepconv.py:228) with the hand-written CUDA kernel
 in `csrc/sepconv.cu`: depthwise 3x3 + bias + ReLU6 into shared memory,
 then the pointwise 1x1 on the tensor cores + bias + ReLU6, in one pass
-whose intermediate never reaches device memory. It covers the layers the
-stride plan leaves at stride 1 and rate 1, in the bfloat16 trunk.
+whose intermediate never reaches device memory. It covers every layer the
+stride plan leaves at stride 1, in the bfloat16 trunk, whatever its
+dilation `rate`: the depthwise's taps lie `rate` pixels apart, (y + dy *
+rate, x + dx * rate) for dy, dx in -1, 0, 1, with `rate` zero rows and
+columns of padding on each side (the output keeps the input's size).
 
-    out = relu6(pw1x1(bf16(relu6(dw3x3(x) + dw_b))) + pw_b)
+    out = relu6(pw1x1(bf16(relu6(dw3x3_rate(x) + dw_b))) + pw_b)
 
 `sepconv_reference` is the plain PyTorch version with the same numerics:
 the depthwise sums its 9 exact bf16 x bf16 products in float32 in the
@@ -25,8 +28,9 @@ Shapes: x (B,H,W,C_in) bf16, NHWC-contiguous (the trunk's channels_last
 NCHW tensor, permuted, is that memory); dw_taps (9,C_in) bf16, tap
 dy*3+dx (`pack_depthwise`); dw_b (C_in,) f32; pw_w (C_out,C_in) bf16;
 pw_b (C_out,) f32. C_in a multiple of 8 and C_out of 16, both at most
-1024 (every stride-1 separable layer of the four models). Returns
-(B,H,W,C_out) bf16, NHWC-contiguous.
+1024 (every stride-1 separable layer of the four models); `rate` an int
+>= 1 (1, 2 or 4 in the four models). Returns (B,H,W,C_out) bf16,
+NHWC-contiguous.
 """
 
 from __future__ import annotations
@@ -53,16 +57,16 @@ def pack_depthwise(dw_w: torch.Tensor) -> torch.Tensor:
     return dw_w.reshape(c, 9).t().to(torch.bfloat16).contiguous()
 
 
-def sepconv_reference(x_nhwc, dw_taps, dw_b, pw_w, pw_b) -> torch.Tensor:
-    """Plain version: f32 taps in (dy, dx) order over a zero-padded copy,
-    + f32 bias, clamp, bf16; then an f32 product of the bf16 values,
-    + f32 bias, clamp, bf16."""
+def sepconv_reference(x_nhwc, dw_taps, dw_b, pw_w, pw_b, rate: int = 1) -> torch.Tensor:
+    """Plain version: f32 taps `rate` apart in (dy, dx) order over a copy
+    zero-padded by `rate` on each side, + f32 bias, clamp, bf16; then an
+    f32 product of the bf16 values, + f32 bias, clamp, bf16."""
     b, h, w, c_in = x_nhwc.shape
-    xp = F.pad(x_nhwc.float(), (0, 0, 1, 1, 1, 1))
+    xp = F.pad(x_nhwc.float(), (0, 0, rate, rate, rate, rate))
     taps = dw_taps.float()
     acc = torch.zeros((b, h, w, c_in), dtype=torch.float32, device=x_nhwc.device)
     for t in range(9):
-        dy, dx = divmod(t, 3)
+        dy, dx = (rate * i for i in divmod(t, 3))
         acc = acc + xp[:, dy:dy + h, dx:dx + w, :] * taps[t]
     mid = torch.clamp(acc + dw_b, 0.0, 6.0).to(torch.bfloat16)
     y = mid.float().reshape(-1, c_in) @ pw_w.float().t()
@@ -70,7 +74,9 @@ def sepconv_reference(x_nhwc, dw_taps, dw_b, pw_w, pw_b) -> torch.Tensor:
     return y.reshape(b, h, w, pw_w.shape[0])
 
 
-def _check_inputs(x, dw_taps, dw_b, pw_w, pw_b):
+def _check_inputs(x, dw_taps, dw_b, pw_w, pw_b, rate):
+    if not isinstance(rate, int) or rate < 1:
+        raise ValueError(f'rate must be an int >= 1, got {rate!r}')
     if x.ndim != 4:
         raise ValueError(f'x must be (B, H, W, C_in), got {tuple(x.shape)}')
     b, h, w, c_in = x.shape
@@ -111,36 +117,42 @@ def _kernel():
     """The C entry point, built and bound at first use."""
     if not _kernel_cache:
         fn = _build.load('sepconv').posenet_sepconv
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _kernel_cache['fn'] = fn
     return _kernel_cache['fn']
 
 
-def sepconv(x_nhwc, dw_taps, dw_b, pw_w, pw_b) -> torch.Tensor:
-    """The fused block. CPU tensors take the plain version. CUDA tensors go
-    through the custom op `posenet_tpu_torch::sepconv`, which launches the
-    kernel on the current stream (no synchronisation) or raises; under
-    `torch.export` the op stays in the graph as one node."""
-    _check_inputs(x_nhwc, dw_taps, dw_b, pw_w, pw_b)
+def sepconv(x_nhwc, dw_taps, dw_b, pw_w, pw_b, rate: int = 1) -> torch.Tensor:
+    """The fused block at dilation `rate`. CPU tensors take the plain
+    version. CUDA tensors go through the custom op
+    `posenet_tpu_torch::sepconv`, which launches the kernel on the current
+    stream (no synchronisation) or raises; under `torch.export` the op
+    stays in the graph as one node."""
+    _check_inputs(x_nhwc, dw_taps, dw_b, pw_w, pw_b, rate)
     device = x_nhwc.device
     if device.type == 'cpu':
-        return sepconv_reference(x_nhwc, dw_taps, dw_b, pw_w, pw_b)
+        return sepconv_reference(x_nhwc, dw_taps, dw_b, pw_w, pw_b, rate)
     if device.type != 'cuda':
         raise ValueError(f'no sepconv for device {device}')
-    return torch.ops.posenet_tpu_torch.sepconv(x_nhwc, dw_taps, dw_b, pw_w, pw_b)
+    return torch.ops.posenet_tpu_torch.sepconv(x_nhwc, dw_taps, dw_b, pw_w, pw_b, rate)
 
 
+# `rate` is last, with a default, so that programs exported before the op
+# took it still load and run at rate 1.
 @torch.library.custom_op(
     'posenet_tpu_torch::sepconv', mutates_args=(), device_types='cuda',
     schema='(Tensor x_nhwc, Tensor dw_taps, Tensor dw_b, Tensor pw_w, '
-           'Tensor pw_b) -> Tensor')
-def _sepconv_cuda(x_nhwc, dw_taps, dw_b, pw_w, pw_b):
+           'Tensor pw_b, int rate=1) -> Tensor')
+def _sepconv_cuda(x_nhwc, dw_taps, dw_b, pw_w, pw_b, rate=1):
     """K2 on real CUDA tensors: one launch, counted. The wrapper checks
     shapes and dtypes; a loaded `torch.export` program calls the op
     directly, so the layout the kernel's pointers assume is checked here
-    again, with the alignment, which reads pointers a FakeTensor has not."""
+    again, with the alignment, which reads pointers a FakeTensor has not,
+    and the rate."""
     global launches
+    if rate < 1:
+        raise ValueError(f'rate must be >= 1, got {rate}')
     for name, t in (('x', x_nhwc), ('dw_taps', dw_taps), ('dw_b', dw_b),
                     ('pw_w', pw_w), ('pw_b', pw_b)):
         if not t.is_contiguous():
@@ -155,7 +167,7 @@ def _sepconv_cuda(x_nhwc, dw_taps, dw_b, pw_w, pw_b):
     with torch.cuda.device(device):
         err = fn(x_nhwc.data_ptr(), dw_taps.data_ptr(), dw_b.data_ptr(),
                  pw_w.data_ptr(), pw_b.data_ptr(), out.data_ptr(),
-                 b, h, w, c_in, c_out, torch.cuda.current_stream(device).cuda_stream)
+                 b, h, w, c_in, c_out, rate, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'sepconv kernel launch failed: cudaError {err}')
     launches += 1
@@ -163,7 +175,7 @@ def _sepconv_cuda(x_nhwc, dw_taps, dw_b, pw_w, pw_b):
 
 
 @_sepconv_cuda.register_fake
-def _sepconv_fake(x_nhwc, dw_taps, dw_b, pw_w, pw_b):
+def _sepconv_fake(x_nhwc, dw_taps, dw_b, pw_w, pw_b, rate=1):
     """The plain version's shape and dtype."""
     b, h, w, _ = x_nhwc.shape
     return x_nhwc.new_empty((b, h, w, pw_w.shape[0]), dtype=torch.bfloat16)

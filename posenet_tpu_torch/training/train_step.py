@@ -9,7 +9,7 @@ zero gradients through as updates).
 
 Mixed precision (`compute_dtype=bfloat16`) needs `heads_only`: the frozen
 trunk runs in bf16, through the fused sepconv kernel on its stride-1
-rate-1 layers, cast once from the float32 master tensors
+layers, cast once from the float32 master tensors
 (`compute_params`); the heads, the loss and Adam's state stay float32.
 
 Data parallelism runs one process per device (a world mesh,

@@ -11,7 +11,7 @@ Tolerances:
   absolute 1e-4; measured: 2.1e-6 of scale at most.
 - bfloat16: bf16 keeps 8 significant bits, so each of the 27 convs rounds
   its output by up to 2^-9 relative, and the two frameworks round bias
-  adds at other places. The port's stride-1, rate-1 separable layers run
+  adds at other places. The port's stride-1 separable layers (any rate) run
   the fused block's plain version (float32 accumulation and biases, one
   bf16 rounding a conv, `ops/sepconv.py`), where the JAX package's trunk
   runs the bf16 XLA conv pair. On random-init weights (unit-scale
@@ -164,21 +164,25 @@ def test_backbone_features_match_jax(model_id, stride):
     np.testing.assert_allclose(ours.numpy(), ref, atol=1e-4 * scale, rtol=0)
 
 
-def test_backbone_features_bf16_match_jax():
-    """bf16 m101 s16, the stride-1 rate-1 layers through K2's plain
-    version, against JAX's bf16 trunk: within 2e-3 of the features' scale,
+@pytest.mark.parametrize('stride', [16, 8])
+def test_backbone_features_bf16_match_jax(stride):
+    """bf16 m101 at s16 and s8, every stride-1 layer through K2's plain
+    version at its dilation rate (s16: layer 13 at rate 2; s8: layers 7-12
+    at rate 2, 13 at rate 4, each map 9x9, smaller than rate 4's reach),
+    against JAX's bf16 trunk: within 2e-3 of the features' scale,
     max(1, max |feature|); measured: one bf16 ulp of features below 0.5
     (2^-9)."""
     params = numpy_params(101, seed=5)
     x = np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3)).astype(np.float32)
-    jcfg = JaxModelConfig(model_id=101, output_stride=16, compute_dtype=jnp.bfloat16)
+    jcfg = JaxModelConfig(model_id=101, output_stride=stride, compute_dtype=jnp.bfloat16)
     ref = np.asarray(jax_mobilenet.backbone_features(
         jax_mobilenet.cast_params(jax.tree.map(jnp.asarray, params), jnp.bfloat16),
         jnp.asarray(x), jcfg).astype(jnp.float32))
-    cfg = ModelConfig(model_id=101, output_stride=16, compute_dtype=torch.bfloat16)
+    cfg = ModelConfig(model_id=101, output_stride=stride, compute_dtype=torch.bfloat16)
     ours = mobilenet_v1.backbone_features(
         mobilenet_v1.cast_params(weights.params_from_jax(params), torch.bfloat16),
         torch.from_numpy(x), cfg)
-    assert ours.shape == ref.shape == (2, 5, 5, 1024) and ours.dtype == torch.bfloat16
+    side = 64 // stride + 1
+    assert ours.shape == ref.shape == (2, side, side, 1024) and ours.dtype == torch.bfloat16
     scale = max(1.0, float(np.abs(ref).max()))
     np.testing.assert_allclose(ours.float().numpy(), ref, atol=2e-3 * scale, rtol=0)

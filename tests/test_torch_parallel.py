@@ -269,26 +269,37 @@ def test_spatial_partition_matches_unsharded_and_jax(inflated, n):
     _assert_close(got, jax_pipe(frames), 1e-5, 1e-3)
 
 
-def test_spatial_bf16_trunk_runs_the_fused_block_on_slabs(inflated, monkeypatch):
-    """bf16: every stride-1 rate-1 layer runs the fused block (K2's plain
-    version here) on each shard's slab, its halo rows cut, and the heads
-    stay within the bf16 bar of the unsharded forward's."""
-    cfg = ModelConfig(model_id=50, output_stride=16, compute_dtype=torch.bfloat16)
+@pytest.mark.parametrize('stride', [16, 8])
+def test_spatial_bf16_trunk_runs_the_fused_block_on_slabs(inflated, monkeypatch, stride):
+    """bf16: every stride-1 layer runs the fused block (K2's plain version
+    here) at its rate on each shard's slab, its `rate` halo rows cut on
+    each side, and the heads stay within the bf16 bar of the unsharded
+    forward's. At s8 layers 7-13 run at rate 2."""
+    cfg = ModelConfig(model_id=50, output_stride=stride, compute_dtype=torch.bfloat16)
     params = mobilenet_v1.cast_params(inflated[1], torch.bfloat16)
     x = normalize(torch.from_numpy(np.random.RandomState(8).randint(
         0, 255, (2, 97, 65, 3), dtype=np.uint8)), torch.bfloat16)
     ref = mobilenet_v1.head_conv(params['heads'], mobilenet_v1.run_trunk(params, x, cfg))
     calls = []
     call = sepconv.sepconv
-    monkeypatch.setattr(sepconv, 'sepconv', lambda *a: calls.append(a[0].shape) or call(*a))
+    monkeypatch.setattr(sepconv, 'sepconv',
+                        lambda *a: calls.append((a[0].shape, a[5])) or call(*a))
     devices = [torch.device('cpu')] * 3
     got = spatial.forward([params] * 3, x, cfg, devices)
     assert got.shape == ref.shape and got.is_contiguous()
     assert float((got - ref).abs().max()) <= 2e-3
-    # 10 fused layers at m50 s16, 3 slabs each, every slab two rows taller
-    # than its shard's output rows
-    assert len(calls) == 30
-    assert calls[0][1] == spatial.split_rows(49, 3)[0][1] + 2
+    # 10 fused layers at m50 s16 (all rate 1) and 11 at s8 (7 at rate 2),
+    # 3 slabs each, every slab 2 * rate rows taller than its shard's
+    # output rows
+    plan = [l for l in mobilenet_v1.stride_plan(50, stride) if mobilenet_v1.uses_sepconv(l, cfg)]
+    assert len(calls) == 3 * len(plan) == {16: 30, 8: 33}[stride]
+    assert calls[0][0][1] == spatial.split_rows(49, 3)[0][1] + 2
+    for i, layer in enumerate(plan):
+        rows = spatial.split_rows((97 - 1) // layer['cumulative_stride'] + 1, 3)
+        for (shape, rate), (a, b) in zip(calls[3 * i:3 * i + 3], rows):
+            assert rate == layer['rate'] and shape[1] == b - a + 2 * rate
+    assert [l['rate'] for l in plan] == [1] * (10 if stride == 16 else 4) + [2] * (
+        0 if stride == 16 else 7)
 
 
 # --- data-parallel serving ------------------------------------------------

@@ -14,7 +14,8 @@ small that its rounding error spans several bf16 ulps. Measured against
 elements differ, by one ulp (share bitwise equal 0.999986); 128->256, 4 of
 557568 differ, one by 1.2e-7 absolute (4 ulp of 7.4e-6), the others by one
 ulp (0.999993 equal). Against the f32-accumulated XLA conv pair at C_in 16,
-24 and 32: bitwise equal.
+24 and 32: bitwise equal; at rates 2 and 4 (`rhs_dilation`), within the
+same tolerance.
 
 The tests marked `cuda` hold the CUDA kernel to its plain version on a
 card, with the same tolerance; they skip without one.
@@ -84,23 +85,51 @@ def test_reference_matches_pallas_interpret(c_in, c_out):
     assert (ours.float().numpy() == ref).mean() > 0.9999
 
 
-@pytest.mark.parametrize("c_in,c_out", [(16, 32), (24, 48), (32, 64)])
-def test_reference_matches_xla_pair(c_in, c_out):
-    """The C_in the TPU kernel refuses (C_in % 128), against the
-    f32-accumulated XLA conv pair, on an odd 17x23 grid."""
-    x, dw, dw_b, pw, pw_b = _inputs(1, 2, 17, 23, c_in, c_out)
+def _xla_pair(x, dw, dw_b, pw, pw_b, rate=1):
+    """The f32-accumulated XLA conv pair at dilation `rate`, padding `rate`:
+    bf16 depthwise + f32 bias, clamp, bf16; bf16 pointwise + f32 bias,
+    clamp, bf16."""
     dn = ('NHWC', 'HWIO', 'NHWC')
     y = lax.conv_general_dilated(
         jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(dw).astype(jnp.bfloat16),
-        (1, 1), [(1, 1), (1, 1)], dimension_numbers=dn, feature_group_count=c_in,
+        (1, 1), [(rate, rate), (rate, rate)], rhs_dilation=(rate, rate),
+        dimension_numbers=dn, feature_group_count=x.shape[-1],
         preferred_element_type=jnp.float32)
     y = jnp.clip(y + dw_b, 0, 6).astype(jnp.bfloat16)
     y = lax.conv_general_dilated(
         y, jnp.asarray(pw).astype(jnp.bfloat16), (1, 1), [(0, 0), (0, 0)],
         dimension_numbers=dn, preferred_element_type=jnp.float32)
-    ref = np.asarray(jnp.clip(y + pw_b, 0, 6).astype(jnp.bfloat16), np.float32)
+    return np.asarray(jnp.clip(y + pw_b, 0, 6).astype(jnp.bfloat16), np.float32)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(16, 32), (24, 48), (32, 64)])
+def test_reference_matches_xla_pair(c_in, c_out):
+    """The C_in the TPU kernel refuses (C_in % 128), against the
+    f32-accumulated XLA conv pair, on an odd 17x23 grid."""
+    x, dw, dw_b, pw, pw_b = _inputs(1, 2, 17, 23, c_in, c_out)
     ours = sepconv.sepconv(*_torch_args(x, dw, dw_b, pw, pw_b))
+    assert_bf16_close(ours.float().numpy(), _xla_pair(x, dw, dw_b, pw, pw_b))
+
+
+@pytest.mark.parametrize("h,w,rate,c_in,c_out", [
+    (5, 5, 4, 64, 128),      # a map smaller than the taps' reach: every
+                             # off-centre tap of most pixels is padding
+    (33, 33, 2, 128, 128),   # m101 s16's layer 13 grid
+    (11, 19, 2, 96, 192),    # non-square
+    (11, 19, 4, 256, 256),
+])
+def test_dilated_reference_matches_xla_pair(h, w, rate, c_in, c_out):
+    """The plain version at rates 2 and 4, as the trunk's dilated layers
+    run it, against the f32-accumulated XLA conv pair with
+    `rhs_dilation=(rate, rate)` and padding `rate`."""
+    x, dw, dw_b, pw, pw_b = _inputs(6, 2, h, w, c_in, c_out)
+    ours = sepconv.sepconv(*_torch_args(x, dw, dw_b, pw, pw_b), rate=rate)
+    assert tuple(ours.shape) == (2, h, w, c_out)
+    ref = _xla_pair(x, dw, dw_b, pw, pw_b, rate)
     assert_bf16_close(ours.float().numpy(), ref)
+    # the taps really are `rate` apart: rate 1 gives another result
+    plain = sepconv.sepconv(*_torch_args(x, dw, dw_b, pw, pw_b))
+    assert not torch.equal(plain, ours)
 
 
 def test_pack_depthwise_is_tap_major():
@@ -117,14 +146,16 @@ def test_pack_depthwise_is_tap_major():
 @pytest.mark.parametrize("stride", [8, 16, 32])
 def test_trunk_runs_k2_on_stride1_rate1_layers(monkeypatch, model_id, stride):
     """A bf16 forward calls the fused block once per separable layer the
-    stride plan leaves at stride 1 and rate 1: 4 at s8; 10 for m50 and m75
-    and 9 for m101 at s16 and s32. On the CPU each call is the plain
-    version, counted here as the kernel's `launches` counts on the card."""
+    stride plan leaves at stride 1, at any dilation rate: 11 at s8 (layers
+    1, 3, 5 and 6 at rate 1, 7-13 dilated); 10 at s16 (m101: layer 13 at
+    rate 2); at s32 10 for m50 and m75 and 9 for m101, whose layer 12 has
+    stride 2. On the CPU each call is the plain version, counted here as
+    the kernel's `launches` counts on the card."""
     calls = []
     plain = sepconv.sepconv_reference
     monkeypatch.setattr(sepconv, 'sepconv_reference',
-                        lambda *a: calls.append(a[0].shape) or plain(*a))
-    expected = {8: 4, 16: 9 if model_id == 101 else 10, 32: 9 if model_id == 101 else 10}
+                        lambda *a: calls.append((a[0].shape, a[5])) or plain(*a))
+    expected = {8: 11, 16: 10, 32: 9 if model_id == 101 else 10}
     cfg = ModelConfig(model_id=model_id, output_stride=stride, compute_dtype=torch.bfloat16)
     plan = mobilenet_v1.stride_plan(model_id, stride)
     assert sum(mobilenet_v1.uses_sepconv(l, cfg) for l in plan) == expected[stride]
@@ -135,8 +166,14 @@ def test_trunk_runs_k2_on_stride1_rate1_layers(monkeypatch, model_id, stride):
     heads = mobilenet_v1.forward(params, x, cfg)
     assert len(calls) == expected[stride]
     assert all(torch.isfinite(h).all() for h in heads.values())
-    if model_id == 101 and stride == 16:   # layers 1, 3, 5, 7-12
-        assert [s[-1] for s in calls] == [32, 128, 256] + [512] * 6
+    rates = [r for _, r in calls]
+    if model_id == 101 and stride == 16:   # layers 1, 3, 5, 7-12, 13 at rate 2
+        assert [s[-1] for s, _ in calls] == [32, 128, 256] + [512] * 6 + [1024]
+        assert rates == [1] * 9 + [2]
+    if stride == 8:                        # layers 1, 3, 5, 6, then 7-13 dilated
+        assert rates == [1] * 4 + [2] * 6 + [4 if model_id == 101 else 2]
+    if stride == 32:
+        assert rates == [1] * expected[stride]
 
 
 def test_f32_trunk_and_uncast_params_route(monkeypatch):
@@ -163,10 +200,15 @@ def test_f32_trunk_and_uncast_params_route(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["x_f32", "x_nchw_memory", "c_in_12", "c_out_40",
-                                  "c_in_2048", "taps_shape", "bias_bf16", "meta_device"])
+                                  "c_in_2048", "taps_shape", "bias_bf16", "meta_device",
+                                  "rate_0", "rate_float"])
 def test_wrapper_rejects(case):
     x, dw, dw_b, pw, pw_b = _inputs(2, 1, 5, 7, 16, 32)
     args = list(_torch_args(x, dw, dw_b, pw, pw_b))
+    if case.startswith("rate"):
+        with pytest.raises(ValueError, match="rate"):
+            sepconv.sepconv(*args, rate=0 if case == "rate_0" else 2.0)
+        return
     if case == "x_f32":
         args[0] = args[0].float()
     elif case == "x_nchw_memory":   # NHWC shape over NCHW memory
@@ -223,10 +265,44 @@ def test_kernel_matches_plain_on_card(cuda, b, h, w, c_in, c_out):   # noqa: F81
 
 
 @pytest.mark.cuda
-def test_bf16_trunk_on_card_runs_k2(cuda):   # noqa: F811
-    """An m101 s16 bf16 forward launches K2 9 times, and its heads stay
-    within the bf16 trunk's 2e-3 of the CPU's (tests/test_torch_mobilenet.py)."""
-    cfg = ModelConfig(model_id=101, output_stride=16, compute_dtype=torch.bfloat16)
+@pytest.mark.parametrize("b,h,w,c_in,c_out,rate", [
+    # the cells' dilated layers: m101 s16 b128's layer 13 (at B=2), m101 s8
+    # 720p b4's layers 7-11, 12 and 13
+    (2, 33, 33, 1024, 1024, 2), (4, 91, 161, 512, 512, 2), (4, 91, 161, 512, 1024, 2),
+    (4, 91, 161, 1024, 1024, 4),
+    # m50's and m75's s8 layers, a ragged one-block pixel tile, a map smaller
+    # than the taps' reach, and the BN = 16 fallback below C_in 256
+    (2, 65, 65, 256, 256, 2), (2, 65, 65, 384, 384, 2), (1, 9, 9, 512, 512, 2),
+    (1, 5, 5, 1024, 1024, 4), (2, 11, 19, 64, 48, 2)])
+def test_dilated_kernel_matches_plain_on_card(cuda, b, h, w, c_in, c_out, rate):   # noqa: F811
+    args = _torch_args(*_inputs(7, b, h, w, c_in, c_out), device=cuda)
+    before = sepconv.launches
+    got = sepconv.sepconv(*args, rate=rate)
+    torch.cuda.synchronize()
+    assert sepconv.launches == before + 1
+    ref = sepconv.sepconv_reference(*args, rate)
+    assert_bf16_close(got.float().cpu().numpy(), ref.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_op_without_rate_runs_at_rate_1(cuda):   # noqa: F811
+    """The op as programs exported before it took a rate call it: five
+    tensors, no rate. It runs at rate 1, bitwise the wrapper's result."""
+    args = _torch_args(*_inputs(8, 2, 17, 23, 256, 256), device=cuda)
+    old = torch.ops.posenet_tpu_torch.sepconv.default(*args)
+    new = sepconv.sepconv(*args, rate=1)
+    torch.cuda.synchronize()
+    assert torch.equal(old, new)
+    assert not torch.equal(old, sepconv.sepconv(*args, rate=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,launches", [(16, 10), (8, 11)])
+def test_bf16_trunk_on_card_runs_k2(cuda, stride, launches):   # noqa: F811
+    """An m101 bf16 forward launches K2 10 times at s16 (layer 13 at rate
+    2) and 11 times at s8 (layers 7-13 dilated), and its heads stay within
+    the bf16 trunk's 2e-3 of the CPU's (tests/test_torch_mobilenet.py)."""
+    cfg = ModelConfig(model_id=101, output_stride=stride, compute_dtype=torch.bfloat16)
     params = mobilenet_v1.init_params(torch.Generator().manual_seed(5), cfg)
     x = torch.from_numpy(np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3))
                          .astype(np.float32))
@@ -235,6 +311,6 @@ def test_bf16_trunk_on_card_runs_k2(cuda):   # noqa: F811
     got = mobilenet_v1.forward(mobilenet_v1.cast_params(params, torch.bfloat16, cuda),
                                x.to(cuda), cfg)
     torch.cuda.synchronize()
-    assert sepconv.launches == before + 9
+    assert sepconv.launches == before + launches
     for k in ref:
         np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), atol=2e-3, rtol=0)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where K2's time goes on the card: the fused sepconv kernel
 (posenet_tpu_torch/csrc/sepconv.cu) built as it is and with phases cut
-out, each timed per m101 s16 513x513 layer at batch 128 by CUDA events.
+out, each timed by CUDA events per m101 s16 513x513 rate-1 layer at batch
+128 and per dilated layer of the benchmark's cells at the cell's batch.
 
     python3 tools/k2_phases.py     # needs an NVIDIA GPU (sm_90a) and nvcc
 
@@ -14,10 +15,12 @@ flags into posenet_tpu_torch/_build/k2_phases/:
   skeleton             no depthwise and no products: the weight copies,
                        barriers and epilogue stores
   skeleton_no_weights  the skeleton without the weight copies
-The cut variants compute wrong outputs by design; only `kernel` is checked.
-Prints the card's name and power limit, one line per layer (the variants
-timed in turns, forward then backward, mean of both), and the sums over
-the 9 K2 layers of one forward. Imports nothing of JAX.
+The cut variants compute wrong outputs by design; only `kernel` is
+checked, at rate 1 and at the dilated layers' rates. Prints the card's
+name and power limit, one line per layer (the variants timed in turns,
+forward then backward, mean of both), and the sums over the 9 rate-1 K2
+layers of one m101 s16 forward and over each cell's dilated layers.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -71,17 +74,17 @@ def build(name: str) -> str:
 
 def bind(lib: str):
     fn = ctypes.CDLL(lib).posenet_sepconv
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(fn, args):
+def launch(fn, args, rate=1):
     x, taps, dw_b, pw_w, pw_b = args
     b, h, w, c_in = x.shape
     out = torch.empty((b, h, w, pw_w.shape[0]), dtype=torch.bfloat16, device=x.device)
     err = fn(x.data_ptr(), taps.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
-             pw_b.data_ptr(), out.data_ptr(), b, h, w, c_in, pw_w.shape[0],
+             pw_b.data_ptr(), out.data_ptr(), b, h, w, c_in, pw_w.shape[0], rate,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f'launch failed: cudaError {err}')
@@ -99,29 +102,35 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         fns = {name: bind(lib) for name, lib in zip(VARIANTS, pool.map(build, VARIANTS))}
-    for i, (h, w, c_in, c_out, _) in enumerate(chip_smoke.K2_M101_SHAPES):
+    # (label, batch, H, W, C_in, C_out, rate, layers of one forward at this shape)
+    layers = [('m101-s16 rate 1', 128, h, w, c_in, c_out, 1, count)
+              for h, w, c_in, c_out, count in chip_smoke.K2_M101_SHAPES]
+    layers += list(chip_smoke.K2_DILATED_CELL_SHAPES)
+    for i, (_, _, h, w, c_in, c_out, rate, _) in enumerate(layers):
         args = chip_smoke.k2_inputs(2, h, w, c_in, c_out, i, dev)
-        got = launch(fns['kernel'], args).float()
-        ref = sepconv.sepconv_reference(*args).float()
+        ref = sepconv.sepconv_reference(*args, rate).float()
         ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+        got = launch(fns['kernel'], args, rate).float()
         if not bool(((got - ref).abs() <= ulp.clamp_min(2.0 ** -16)).all()):
             raise SystemExit(f'k2_phases: the kernel differs from its plain version at '
-                             f'{h}x{w} {c_in}->{c_out}')
-    totals = dict.fromkeys(fns, 0.0)
-    for i, (h, w, c_in, c_out, count) in enumerate(chip_smoke.K2_M101_SHAPES):
-        args = chip_smoke.k2_inputs(128, h, w, c_in, c_out, 100 + i, dev)
+                             f'{h}x{w} {c_in}->{c_out} rate {rate}')
+    totals = {}
+    for i, (label, batch, h, w, c_in, c_out, rate, count) in enumerate(layers):
+        args = chip_smoke.k2_inputs(batch, h, w, c_in, c_out, 100 + i, dev)
         runs = {}
         for name in list(fns) + list(fns)[::-1]:
             runs.setdefault(name, []).append(
-                chip_smoke.cuda_ms(lambda: launch(fns[name], args), 20))
+                chip_smoke.cuda_ms(lambda: launch(fns[name], args, rate), 20))
         ms = {name: sum(v) / len(v) for name, v in runs.items()}
+        total = totals.setdefault(label, dict.fromkeys(fns, 0.0))
         for name in fns:
-            totals[name] += count * ms[name]
-        print(f'b128 {h}x{w} {c_in}->{c_out} (x{count} a forward): ' +
+            total[name] += count * ms[name]
+        print(f'{label} b{batch} {h}x{w} {c_in}->{c_out} rate {rate} (x{count} a forward): ' +
               ', '.join(f'{name} {t:.4f} ms' for name, t in ms.items()), flush=True)
         del args
-    print('the 9 layers of one forward: ' +
-          ', '.join(f'{name} {t:.4f} ms' for name, t in totals.items()))
+    for label, total in totals.items():
+        print(f'{label}, the layers of one forward: ' +
+              ', '.join(f'{name} {t:.4f} ms' for name, t in total.items()))
     return 0
 
 
