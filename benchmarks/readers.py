@@ -42,7 +42,8 @@ def model_hw(run):
 def k2_roofline(run) -> Optional[float]:
     """% of K2's device time that its roofline bound accounts for: the sum
     of `yardstick.k2_bound_ms` over the K2 calls the traced stretch made
-    (each layer's shape at the shard's batch), over K2's device ms."""
+    (every stride-1 separable layer, dilated or not, at its shape and the
+    shard's batch), over K2's device ms."""
     if not run.trace or not run.trace['device_events']:
         return None
     k2_ms = run.trace['by_kind_s'].get('K2 sepconv', 0.0) * 1e3

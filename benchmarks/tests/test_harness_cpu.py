@@ -37,8 +37,8 @@ def run(cell, trace=False, **kw):
     return harness.execute(cell, SEED, 0.3, trace, cpus(cell), log=lambda *a, **k: None, **kw)
 
 
-@pytest.mark.parametrize('name,raw', [('m101-s16.offline-b128', False), ('m101-s16.offline-b128', True),
-                                      ('m101-s8.offline-720p-b4', False)])
+@pytest.mark.parametrize('name,raw', [('m101-s16.offline-b256', False), ('m101-s16.offline-b256', True),
+                                      ('m101-s8.offline-720p-b32', False)])
 def test_a_sound_run_is_correct_and_reads_no_device_metric(name, raw):
     cell = tiny(name, raw=raw)
     for trace in (False, True):
@@ -57,7 +57,7 @@ def test_a_sound_run_is_correct_and_reads_no_device_metric(name, raw):
 @pytest.mark.parametrize('raw', [False, True])
 def test_the_reference_agrees_with_the_float32_program(raw):
     """On RGB frames, and on raw BGR frames resized on the device."""
-    cell = tiny('m101-s16.offline-b128', compute_dtype='float32', raw=raw)
+    cell = tiny('m101-s16.offline-b256', compute_dtype='float32', raw=raw)
     gaps = run(cell)['checks']
     assert gaps['score_gap']['value'] <= 1e-5
     assert gaps['offset_gap_px']['value'] <= 1e-4
@@ -67,7 +67,7 @@ def test_the_reference_agrees_with_the_float32_program(raw):
 
 def test_the_control_is_not_correct():
     """The reference in float8 in the program's place."""
-    result = run(tiny('m101-s16.offline-b128'), system=posenet.CONTROL)
+    result = run(tiny('m101-s16.offline-b256'), system=posenet.CONTROL)
     assert result['correct'] is False, result['checks']
 
 
@@ -127,16 +127,16 @@ def _accept_without_the_nms_radius(monkeypatch):
 
 
 @pytest.mark.parametrize('name,raw,fault', [
-    ('m101-s16.offline-b128', False, _alter_one_keypoint),
-    ('m101-s16.offline-b128', True, _alter_one_keypoint),
-    ('m101-s8.offline-720p-b4', False, _alter_one_keypoint),
-    ('m101-s16.offline-b128', False, _leave_out_half_the_batch),
-    ('m101-s16.offline-b128', False, _return_the_first_answer),
-    ('m101-s16.offline-b128', True, _return_the_first_answer),
-    ('m101-s16.offline-b128', False, _accept_without_the_nms_radius),
-    ('m101-s8.offline-720p-b4', False, _accept_without_the_nms_radius),
-    ('m101-s8.offline-720p-b4', False, _skip_the_nms),
-    ('m101-s8.offline-720p-b4', False, _leave_the_candidates_unsorted),
+    ('m101-s16.offline-b256', False, _alter_one_keypoint),
+    ('m101-s16.offline-b256', True, _alter_one_keypoint),
+    ('m101-s8.offline-720p-b32', False, _alter_one_keypoint),
+    ('m101-s16.offline-b256', False, _leave_out_half_the_batch),
+    ('m101-s16.offline-b256', False, _return_the_first_answer),
+    ('m101-s16.offline-b256', True, _return_the_first_answer),
+    ('m101-s16.offline-b256', False, _accept_without_the_nms_radius),
+    ('m101-s8.offline-720p-b32', False, _accept_without_the_nms_radius),
+    ('m101-s8.offline-720p-b32', False, _skip_the_nms),
+    ('m101-s8.offline-720p-b32', False, _leave_the_candidates_unsorted),
 ])
 def test_a_broken_timed_path_is_not_correct(name, raw, fault, monkeypatch):
     fault(monkeypatch)
@@ -158,7 +158,7 @@ def test_a_number_without_a_limit_is_not_correct():
 def test_a_key_that_nothing_reads_is_refused(tmp_path):
     """At the top of a configuration or traffic file by the harness, inside
     the program's groups by the program's own constructors."""
-    cell = harness.load_cell('m101-s16.offline-b128')
+    cell = harness.load_cell('m101-s16.offline-b256')
     assert harness.unread_keys(cell) == []
     assert harness.unread_keys(dataclasses.replace(
         cell, config=dict(cell.config, quantize=True),
@@ -169,7 +169,7 @@ def test_a_key_that_nothing_reads_is_refused(tmp_path):
     path.write_text(json.dumps(dict(cell.config, devices=4)))
     bench['configs'][0]['file'] = str(path)
     with pytest.raises(SystemExit, match='config devices'):
-        harness.load_cell('m101-s16.offline-b128', bench)
+        harness.load_cell('m101-s16.offline-b256', bench)
     with pytest.raises(TypeError):
         pipeline.model_config(dict(cell.config, model=dict(cell.config['model'], int8=True)))
     with pytest.raises(TypeError):
@@ -178,7 +178,7 @@ def test_a_key_that_nothing_reads_is_refused(tmp_path):
 
 def test_run_without_a_card_exits_with_an_error():
     proc = subprocess.run([sys.executable, str(harness.HERE / 'run.py'), '--workload',
-                           'm101-s16.offline-b128', '--seed', str(SEED), '--seconds', '1'],
+                           'm101-s16.offline-b256', '--seed', str(SEED), '--seconds', '1'],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert proc.stdout.strip() == ''

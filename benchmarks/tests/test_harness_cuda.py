@@ -23,7 +23,7 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('name', ['m101-s16.offline-b128', 'm101-s8.offline-720p-b4'])
+@pytest.mark.parametrize('name', ['m101-s16.offline-b256', 'm101-s8.offline-720p-b32'])
 def test_program_correct_and_control_not_at_the_cells_size(card, name):
     cell = harness.load_cell(name)
     line = control.readings(cell, 2 ** 31 + 99, card, with_program=True)

@@ -29,7 +29,7 @@ def test_a_run_loads_no_jax_and_no_jax_package():
         'import torch; torch.set_num_threads(2)\n'
         'from benchmarks import harness, control, run\n'
         'from benchmarks.tests.cells import tiny, cpus\n'
-        'cell = tiny("m101-s16.offline-b128")\n'
+        'cell = tiny("m101-s16.offline-b256")\n'
         'for m in cell.per_layer: harness.reader(m["name"])\n'
         'harness.execute(cell, 5, 0.2, True, cpus(cell))\n'
         'assert harness.forbidden_loaded() == []')

@@ -35,7 +35,7 @@ def run(cell, trace, **kw):
     return harness.execute(cell, SEED, 0.3, trace, cpus(cell), log=lambda *a, **k: None, **kw)
 
 
-@pytest.mark.parametrize('name', ['m101-s16.offline-b128', 'm101-s8.offline-720p-b4'])
+@pytest.mark.parametrize('name', ['m101-s16.offline-b256', 'm101-s8.offline-720p-b32'])
 def test_a_traced_cpu_run_reads_the_host_spans(name):
     cell = tiny(name)
     assert {m['name'] for m in cell.per_layer} >= set(HOST + DEVICE)
@@ -53,14 +53,14 @@ def test_a_traced_cpu_run_reads_the_host_spans(name):
 
 
 def test_the_control_reads_no_span():
-    metrics = run(tiny('m101-s16.offline-b128'), trace=True, system=posenet.CONTROL)['metrics']
+    metrics = run(tiny('m101-s16.offline-b256'), trace=True, system=posenet.CONTROL)['metrics']
     assert not set(HOST + DEVICE) & set(metrics)
 
 
 def _run_after(calls: int, trace_calls: int, on_device: bool = False) -> harness.Run:
     """A run whose window ended now, then `calls` spanned calls of the
     program's shape recorded after it."""
-    cell = tiny('m101-s16.offline-b128')
+    cell = tiny('m101-s16.offline-b256')
     t = time.perf_counter()
     window = [harness.Call(frames=None, t_send=t, t_return=t, t_done=t)]
     with profiling.recording():

@@ -71,12 +71,14 @@ def forward_flops(model_id: int, output_stride: int, height: int, width: int) ->
 
 def k2_layers(model_id: int, output_stride: int, height: int, width: int
               ) -> List[Tuple[int, int, int, int]]:
-    """(h, w, c_in, c_out) of each layer the bf16 trunk runs as K2: the
-    separable layers at stride 1 and rate 1. K2 keeps the layer's spatial
-    size (its input is the previous layer's output)."""
+    """(h, w, c_in, c_out) of each layer the bf16 trunk runs as K2: every
+    separable layer at stride 1, whatever its dilation rate. K2 keeps the
+    layer's spatial size (its input is the previous layer's output); a
+    dilated layer reads and writes the same bytes and does the same
+    products as at rate 1, so its bound (`k2_bound_ms`) is the same."""
     return [(l['h'], l['w'], l['c_in'], l['c_out'])
             for l in layer_shapes(model_id, output_stride, height, width)
-            if l['kind'] == 'sep' and l['stride'] == 1 and l['rate'] == 1]
+            if l['kind'] == 'sep' and l['stride'] == 1]
 
 
 def k2_bound_ms(b: int, h: int, w: int, c_in: int, c_out: int) -> float:
