@@ -1,8 +1,9 @@
 """posenet-tpu-torch: the PyTorch + CUDA port of posenet_tpu.
 
-Multi-person pose estimation (MobileNetV1 PoseNet with the on-device
-multi-pose decoder) for NVIDIA GPUs, beside the JAX package it is held
-equal to. It imports torch and never jax.
+Multi-person pose estimation (MobileNetV1 PoseNet, and PoseNet ResNet50 on
+the fused pipeline, with the on-device multi-pose decoder) for NVIDIA
+GPUs, beside the JAX package it is held equal to. It imports torch and
+never jax.
 """
 
 from posenet_tpu_torch.constants import *  # noqa: F401,F403
@@ -16,7 +17,7 @@ from posenet_tpu_torch.decode_multi import (decode_multiple_poses,  # noqa: F401
 from posenet_tpu_torch.draw import (draw_keypoints, draw_skel_and_kp,  # noqa: F401
                                     draw_skeleton, get_adjacent_keypoints)
 from posenet_tpu_torch.models.model_factory import (MobileNetV1, PoseNet,  # noqa: F401
-                                                    load_model)
+                                                    ResNet50, load_model)
 from posenet_tpu_torch.models.mobilenet_v1 import MOBILENET_V1_CHECKPOINTS  # noqa: F401
 from posenet_tpu_torch.pipeline import (PoseNetPipeline, infer,  # noqa: F401
                                         infer_raw, to_device)

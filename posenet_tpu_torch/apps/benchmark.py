@@ -13,9 +13,14 @@ modes:
 --profile DIR: in the batch mode, a `torch.profiler` trace of one batch
 into DIR, a table of device time by kernel and one of the pipeline's
 spans (`pipeline.call`, `pipeline.to_device`, `pipeline.forward`,
-`pipeline.decode`); in the per-frame mode, the host and device ms of each
+`pipeline.decode`; with `--architecture resnet50` also `resnet.stem` and
+`resnet.block1` ... `resnet.block4`, and the trunk's conv launches a call,
+`resnet.convs`); in the per-frame mode, the host and device ms of each
 frame's forward and decode (`profiling.span` under
 `profiling.recording()`).
+
+--architecture resnet50: PoseNet ResNet50 with random weights (needs
+--allow_random_init: no ResNet50 checkpoint is read yet), batch mode only.
 
     python -m posenet_tpu_torch.apps.benchmark --image_dir ./images --allow_random_init
 """
@@ -28,13 +33,15 @@ import time
 import posenet_tpu_torch as posenet
 from posenet_tpu_torch import profiling
 from posenet_tpu_torch.apps import add_device_flag, full_float32
-from posenet_tpu_torch.config import DecodeConfig
+from posenet_tpu_torch.config import ARCHITECTURES, DecodeConfig
+from posenet_tpu_torch.models import resnet50
 from posenet_tpu_torch.pipeline import PoseNetPipeline, to_device
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', type=int, default=101)
+    parser.add_argument('--architecture', choices=ARCHITECTURES, default='mobilenet_v1')
     parser.add_argument('--image_dir', type=str, default='./images')
     parser.add_argument('--num_images', type=int, default=1000)
     parser.add_argument('--output_stride', type=int, default=16)
@@ -47,7 +54,11 @@ def parse_args(argv=None):
                         help='capture a torch.profiler trace to this '
                              'directory and print a per-kernel time report')
     add_device_flag(parser)
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.architecture == 'resnet50' and args.batch_size <= 0:
+        parser.error('--architecture resnet50 runs in the batch mode (--batch_size N): the '
+                     "per-frame loop's host preprocessing scales to MobileNetV1's [-1, 1]")
+    return args
 
 
 def list_images(args):
@@ -68,7 +79,7 @@ def main(argv=None):
     full_float32()
     model = posenet.load_model(args.model, output_stride=args.output_stride,
                                allow_random_init=args.allow_random_init,
-                               device=args.device)
+                               device=args.device, architecture=args.architecture)
     output_stride = model.output_stride
     num_images = args.num_images
 
@@ -110,11 +121,14 @@ def main(argv=None):
         frames[0, 0, 0, 0].item()
 
         if args.profile:
+            convs = resnet50.convs
             with profiling.trace(args.profile, pipe.device):
                 out = pipe(frames)
                 out.pose_scores[0, 0].item()
             print(profiling.device_time_report(args.profile))
             print(profiling.span_table())
+            if args.architecture == 'resnet50':
+                print('resnet.convs a call:', resnet50.convs - convs)
 
         start = time.time()
         for _ in range(n_batches):

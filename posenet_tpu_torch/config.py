@@ -3,7 +3,8 @@
 Same fields and defaults as the JAX package, with `compute_dtype` as a
 `torch.dtype`. The JAX package's TPU-only knobs (the Pallas switch, the
 two-stage top-K and the packed stem) have no counterpart: the port has one
-route for each of them.
+route for each of them. `ModelConfig.architecture` is the port's own: the
+JAX package runs MobileNetV1 alone.
 """
 
 from __future__ import annotations
@@ -12,6 +13,20 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+ARCHITECTURES = ('mobilenet_v1', 'resnet50')
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """`device` as a torch.device; raises where it is a CUDA device and this
+    host has none, so that nothing is built on the CPU unless asked for."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{str(device)!r} needs a CUDA device, and none is available here: run "
+            f"on a CUDA host, or ask for the CPU (device='cpu', platforms=('cpu',), "
+            f"--platforms cpu)")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +44,10 @@ class ModelConfig:
     # calibration pass. Inference only (`PoseNetPipeline`); needs
     # compute_dtype=bfloat16. The heads and the decoder are unchanged.
     quantized: bool = False
+    # 'mobilenet_v1', or 'resnet50': tfjs-models posenet's ResNet50
+    # (`models/resnet50.py`), at output stride 16 or 32 and in float32 or
+    # the bf16 trunk; `model_id` is not read for it.
+    architecture: str = 'mobilenet_v1'
 
     def __post_init__(self):
         if self.model_id not in (50, 75, 100, 101):
@@ -42,6 +61,17 @@ class ModelConfig:
             raise ValueError(
                 "quantized=True requires compute_dtype=bfloat16 (the int8 trunk is an "
                 "inference mode; float32 is the parity mode)")
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture must be one of {ARCHITECTURES}, got "
+                             f"{self.architecture!r}")
+        if self.architecture == 'resnet50' and self.output_stride == 8:
+            raise ValueError(
+                "ResNet50 takes output stride 16 or 32, the strides tfjs-models posenet "
+                "publishes it at; 8 is MobileNetV1's alone")
+        if self.architecture == 'resnet50' and self.quantized:
+            raise ValueError(
+                "quantized=True is MobileNetV1's int8 trunk (models/quantized.py); "
+                "ResNet50 has no int8 trunk")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -270,6 +270,20 @@ def backbone_features(params: Dict[str, Any], x_nhwc: torch.Tensor,
     return run_trunk(params, x_nhwc, cfg).permute(0, 2, 3, 1)
 
 
+def normalize(frames_u8: torch.Tensor, params: Dict[str, Any],
+              dtype: torch.dtype) -> torch.Tensor:
+    """uint8 -> [-1, 1] in `dtype`, as x * (2/255) - 1; `params` is not read
+    (it is, for ResNet50's mean: `resnet50.normalize`).
+
+    The scale is rounded to `dtype` before it multiplies, as the JAX
+    package's weak-typed 2/255 is; in bf16 a Python float would multiply
+    unrounded and give other values for 111 of the 256 inputs. The scale
+    is filled in on the device: `torch.tensor(..., device=)` would copy it
+    from the host and wait for the device's queued work first."""
+    scale = torch.full((), 2.0 / 255.0, dtype=dtype, device=frames_u8.device)
+    return frames_u8.to(dtype) * scale - 1.0
+
+
 def head_conv(heads_params: Dict[str, Any], feat: torch.Tensor) -> torch.Tensor:
     """All four 1x1 heads as ONE float32 conv over the concatenated 115
     output channels, so the trunk features are read once: (B, R, R', 115)

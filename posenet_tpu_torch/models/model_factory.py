@@ -1,5 +1,9 @@
 """Model loading facade, mirroring `posenet_tpu.models.model_factory`.
 
+`PoseNet` holds either architecture of `ModelConfig.architecture`:
+MobileNetV1 (`mobilenet_v1`) or ResNet50 (`resnet50`, built with random
+weights by `ResNet50`; no checkpoint of it is read yet).
+
 `load_model(model_id, output_stride, model_dir)` returns a `PoseNet` whose
 call takes an NCHW or NHWC float tensor and returns the four head tensors
 in the same layout. It reads `<model_dir>/<checkpoint>.npz` (the JAX
@@ -21,21 +25,13 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
-from posenet_tpu_torch.config import MODEL_DIR, ModelConfig
+from posenet_tpu_torch.config import MODEL_DIR, ModelConfig, resolve_device
 from posenet_tpu_torch.converter import tfjs2torch, weights
-from posenet_tpu_torch.models import mobilenet_v1
+from posenet_tpu_torch.models import mobilenet_v1, resnet50
 
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """`device` as a torch.device; raises where it is a CUDA device and this
-    host has none, so that nothing is built on the CPU unless asked for."""
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"{str(device)!r} needs a CUDA device, and none is available here: run "
-            f"on a CUDA host, or ask for the CPU (device='cpu', platforms=('cpu',), "
-            f"--platforms cpu)")
-    return device
+# The module that runs each `ModelConfig.architecture`: its `normalize`,
+# `forward` and `cast_params`.
+ARCHITECTURE_MODULES = {'mobilenet_v1': mobilenet_v1, 'resnet50': resnet50}
 
 
 class _Tensors(nn.Module):
@@ -49,8 +45,8 @@ class _Tensors(nn.Module):
 
 
 class PoseNet(nn.Module):
-    """MobileNetV1 PoseNet over a parameter pytree (see
-    `mobilenet_v1.init_params` for its layout)."""
+    """PoseNet over a parameter pytree (see `mobilenet_v1.init_params` and
+    `resnet50.init_params` for its layout)."""
 
     def __init__(self, params: Dict[str, Any], cfg: ModelConfig):
         super().__init__()
@@ -61,7 +57,7 @@ class PoseNet(nn.Module):
 
     @property
     def params(self) -> Dict[str, Any]:
-        """The parameter pytree, as `mobilenet_v1.forward` takes it."""
+        """The parameter pytree, as the architecture's `forward` takes it."""
         return {
             'backbone': [dict(m.named_buffers()) for m in self.backbone],
             'heads': {name: dict(m.named_buffers())
@@ -81,8 +77,10 @@ class PoseNet(nn.Module):
         return self.cfg.model_id
 
     def forward_nhwc(self, x_nhwc: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """NHWC in, dict of NHWC heads out."""
-        return mobilenet_v1.forward(self.params, x_nhwc, self.cfg)
+        """NHWC in (MobileNetV1: in [-1, 1]; ResNet50: RGB plus the ImageNet
+        mean), dict of NHWC heads out."""
+        return ARCHITECTURE_MODULES[self.cfg.architecture].forward(
+            self.params, x_nhwc, self.cfg)
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         """(heatmap, offset, displacement_fwd, displacement_bwd) for an
@@ -115,11 +113,23 @@ def MobileNetV1(model_id: int = 101, output_stride: int = 16, *,
     return PoseNet(mobilenet_v1.init_params(generator, cfg, device), cfg)
 
 
+def ResNet50(output_stride: int = 16, *, compute_dtype: torch.dtype = torch.float32,
+             seed: int = 0, device: torch.device | str = 'cuda') -> PoseNet:
+    """A randomly initialised PoseNet ResNet50 on `device` (see
+    `resolve_device`), weights drawn as `MobileNetV1`'s are."""
+    device = resolve_device(device)
+    cfg = ModelConfig(output_stride=output_stride, compute_dtype=compute_dtype,
+                      architecture='resnet50')
+    generator = torch.Generator().manual_seed(seed)
+    return PoseNet(resnet50.init_params(generator, cfg, device), cfg)
+
+
 def load_model(model_id: int = 101, output_stride: int = 16,
                model_dir: str = MODEL_DIR, *,
                compute_dtype: torch.dtype = torch.float32,
                allow_random_init: bool = False, seed: int = 0,
-               device: torch.device | str = 'cuda') -> PoseNet:
+               device: torch.device | str = 'cuda',
+               architecture: str = 'mobilenet_v1') -> PoseNet:
     """Load `<model_dir>/<checkpoint>.npz` onto `device` (see
     `resolve_device`, which runs first), downloading and converting the
     tfjs checkpoint into it when it is missing (`tfjs2torch.convert`, with
@@ -130,10 +140,23 @@ def load_model(model_id: int = 101, output_stride: int = 16,
     and only with `allow_random_init`; otherwise it is raised. Any other
     error (a half-written shard cache, a full disk) is raised in both
     cases: random weights behind a "download failed" line would look like
-    a broken detector."""
+    a broken detector.
+
+    `architecture='resnet50'`: no ResNet50 checkpoint is read yet (the
+    tfjs ResNet50 converter waits for its checkpoint files), so this raises
+    FileNotFoundError naming the checkpoint, or, with `allow_random_init`,
+    draws random weights (`ResNet50`); `model_id` is not read."""
     device = resolve_device(device)
     cfg = ModelConfig(model_id=model_id, output_stride=output_stride,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, architecture=architecture)
+    if architecture == 'resnet50':
+        checkpoint = resnet50.CHECKPOINT.format(stride=output_stride)
+        if not allow_random_init:
+            raise FileNotFoundError(
+                f'no ResNet50 checkpoint: the port reads none yet ({checkpoint} needs '
+                f'the tfjs ResNet50 converter); allow_random_init=True draws random weights')
+        print(f'No ResNet50 checkpoint ({checkpoint}); using random initialization.')
+        return ResNet50(output_stride, compute_dtype=compute_dtype, seed=seed, device=device)
     name = mobilenet_v1.MOBILENET_V1_CHECKPOINTS[model_id]
     path = os.path.join(model_dir, name + '.npz')
     if not os.path.exists(path):

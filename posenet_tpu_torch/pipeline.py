@@ -11,11 +11,16 @@ height sharded (`parallel.spatial`). With `ModelConfig.quantized` the
 trunk is the int8 one (`models.quantized`), its weights folded once when
 the pipeline is built; it runs `infer` and the data partition, and refuses
 the spatial partition and `device_resize_to`, as the JAX package's does.
+With `ModelConfig.architecture='resnet50'` the model is PoseNet ResNet50
+(`models.resnet50`), on `infer` and the data partition; `infer_raw`
+(`device_resize_to`), the spatial partition and the int8 trunk are
+MobileNetV1's alone and refuse it.
 
 Each call is a `profiling.span`, `pipeline.call`, around the spans of its
 stages: `pipeline.to_device`, `pipeline.preprocess` (`infer_raw`),
-`pipeline.forward` and `pipeline.decode`. They record nothing unless a
-profiler or `profiling.recording()` is on.
+`pipeline.forward` and `pipeline.decode`; ResNet50's forward holds
+`resnet.stem` and `resnet.block1` ... `resnet.block4`. They record
+nothing unless a profiler or `profiling.recording()` is on.
 """
 
 from __future__ import annotations
@@ -28,22 +33,15 @@ from posenet_tpu_torch import profiling
 from posenet_tpu_torch.config import DecodeConfig, ModelConfig
 from posenet_tpu_torch.decode import DecodedPoses, decode_batch
 from posenet_tpu_torch.models import mobilenet_v1, quantized
-from posenet_tpu_torch.models.model_factory import PoseNet
+from posenet_tpu_torch.models.model_factory import ARCHITECTURE_MODULES, PoseNet
 from posenet_tpu_torch.parallel import mesh as mesh_lib
 from posenet_tpu_torch.parallel import spatial
 from posenet_tpu_torch.preprocess import preprocess_on_device
 
 
 def normalize(frames_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """uint8 -> [-1, 1] in `dtype`, as x * (2/255) - 1.
-
-    The scale is rounded to `dtype` before it multiplies, as the JAX
-    package's weak-typed 2/255 is; in bf16 a Python float would multiply
-    unrounded and give other values for 111 of the 256 inputs. The scale
-    is filled in on the device: `torch.tensor(..., device=)` would copy it
-    from the host and wait for the device's queued work first."""
-    scale = torch.full((), 2.0 / 255.0, dtype=dtype, device=frames_u8.device)
-    return frames_u8.to(dtype) * scale - 1.0
+    """uint8 -> [-1, 1] in `dtype`: MobileNetV1's input (`mobilenet_v1.normalize`)."""
+    return mobilenet_v1.normalize(frames_u8, None, dtype)
 
 
 def to_device(frames_u8, device: torch.device) -> torch.Tensor:
@@ -71,15 +69,13 @@ def to_device(frames_u8, device: torch.device) -> torch.Tensor:
 def infer(params: Dict[str, Any], frames_u8: torch.Tensor, cfg: ModelConfig,
           decode_cfg: DecodeConfig) -> DecodedPoses:
     """(B, H, W, 3) uint8 RGB frames -> DecodedPoses (B, P, ...), on the
-    frames' device. `params` must be on that device, cast as
-    `mobilenet_v1.cast_params` does for `cfg.compute_dtype`, or, with
+    frames' device. `params` must be on that device, cast as the
+    architecture's `cast_params` does for `cfg.compute_dtype`, or, with
     `cfg.quantized`, folded by `quantized.quantize_params`."""
+    arch = ARCHITECTURE_MODULES[cfg.architecture]
+    forward = quantized.forward_quantized if cfg.quantized else arch.forward
     with profiling.span('pipeline.forward', frames_u8.device):
-        x = normalize(frames_u8, cfg.compute_dtype)
-        if cfg.quantized:
-            heads = quantized.forward_quantized(params, x, cfg)
-        else:
-            heads = mobilenet_v1.forward(params, x, cfg)
+        heads = forward(params, arch.normalize(frames_u8, params, cfg.compute_dtype), cfg)
     return _decode(heads, cfg, decode_cfg)
 
 
@@ -93,13 +89,21 @@ def infer_raw(params: Dict[str, Any], frames_bgr_u8: torch.Tensor,
     in float32), then `forward`, whose trunk casts to the compute dtype,
     then `decode_batch`, on the frames' device; the same calls made one by
     one give the same bits. (`infer` normalizes in the compute dtype
-    instead, as the JAX package's `_infer` does.)"""
+    instead, as the JAX package's `_infer` does.) MobileNetV1 only."""
+    if cfg.architecture != 'mobilenet_v1':
+        raise NotImplementedError(_RAW_RESNET50)
     device = frames_bgr_u8.device
     with profiling.span('pipeline.preprocess', device):
         x = preprocess_on_device(frames_bgr_u8, target_hw)
     with profiling.span('pipeline.forward', device):
         heads = mobilenet_v1.forward(params, x, cfg)
     return _decode(heads, cfg, decode_cfg)
+
+
+_RAW_RESNET50 = (
+    "device_resize_to (infer_raw) + ResNet50: the device preprocess scales to [-1, 1] for "
+    "MobileNetV1, and no ResNet50 form of it (RGB plus the ImageNet mean) is ported; "
+    "resize on the host and call infer")
 
 
 def infer_spatial(replicas, frames_u8: torch.Tensor, cfg: ModelConfig,
@@ -169,7 +173,7 @@ class PoseNetPipeline:
           'spatial': the image height (`parallel.spatial`), for one
             frame's latency over several devices; the decode runs on the
             gathered heads. Not with `device_resize_to`, nor with a
-            quantized model."""
+            quantized model, nor with ResNet50."""
         if partition not in ('data', 'spatial'):
             raise ValueError(f"partition must be 'data' or 'spatial', got {partition!r}")
         if model.cfg.quantized and device_resize_to is not None:
@@ -177,6 +181,8 @@ class PoseNetPipeline:
                 "device_resize_to + quantized: infer_raw routes through the float "
                 "forward, which cannot read the folded int8 parameters; resize on the "
                 "host for the quantized trunk")
+        if model.cfg.architecture == 'resnet50' and device_resize_to is not None:
+            raise NotImplementedError(_RAW_RESNET50)
         self.cfg = model.cfg
         self.decode_cfg = decode_cfg
         self.device_resize_to = (tuple(device_resize_to)
@@ -201,6 +207,10 @@ class PoseNetPipeline:
                 "quantized + spatial partition: the int8 trunk has no height-sharded "
                 "form (parallel.spatial runs the float layers, as the JAX package's "
                 "int8 trunk has no valid_h pad-row masking); use partition='data'")
+        if partition == 'spatial' and model.cfg.architecture == 'resnet50':
+            raise NotImplementedError(
+                "ResNet50 + spatial partition: parallel.spatial shards MobileNetV1's layers "
+                "and no height-sharded ResNet50 trunk is ported; use partition='data'")
         self.device = mesh.devices[0]
         self.replicas = mesh_lib.replicate(self._fold(model, self.device), mesh)
         self.params = self.replicas[0]
@@ -210,7 +220,8 @@ class PoseNetPipeline:
         """The model's parameters on `device` as `infer` reads them."""
         if model.cfg.quantized:
             return quantized.quantize_params(model.params, device)
-        return mobilenet_v1.cast_params(model.params, model.cfg.compute_dtype, device)
+        return ARCHITECTURE_MODULES[model.cfg.architecture].cast_params(
+            model.params, model.cfg.compute_dtype, device)
 
     def __call__(self, frames_u8) -> DecodedPoses:
         """Run forward + decode on a uint8 frame batch (B, H, W, 3). Frames

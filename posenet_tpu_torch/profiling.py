@@ -29,7 +29,7 @@ from typing import Dict, Iterable, List, Optional
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from posenet_tpu_torch.models.model_factory import resolve_device
+from posenet_tpu_torch.config import resolve_device
 
 TRACE_FILE = 'trace.json'
 # Chrome-trace categories of work on the card. `record_function` ranges

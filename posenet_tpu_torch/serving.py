@@ -120,7 +120,8 @@ def save_serving_artifact(
     over N devices (`ServingArtifact`).
 
     A quantized model is refused (NotImplementedError), as the JAX
-    package refuses it: serve it through `server.LivePipelineBackend`."""
+    package refuses it: serve it through `server.LivePipelineBackend`. So
+    is ResNet50, whose artifact (programs and metadata) is not ported."""
     import posenet_tpu_torch
 
     cfg = model.cfg
@@ -128,6 +129,10 @@ def save_serving_artifact(
         raise NotImplementedError(
             "serving export of the int8 trunk is not supported; serve a quantized "
             "model through server.LivePipelineBackend")
+    if cfg.architecture == 'resnet50':
+        raise NotImplementedError(
+            "serving export of ResNet50 is not ported (the artifact's programs and "
+            "metadata are MobileNetV1's); serve it through server.LivePipelineBackend")
     _validate_input_hw(tuple(input_hw), cfg.output_stride)
     platforms = list(platforms)
     if not platforms:
