@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # every phase: what a run must pass
     python3 chip_smoke.py --only k1   # device, build, K1's checks and timing
     python3 chip_smoke.py --only k2   # device, build, K2's checks and timing
+    python3 chip_smoke.py --only stem # device, build, the ResNet50 stem's checks and timing
     python3 chip_smoke.py --only apps # device, build, phase 8
     python3 chip_smoke.py --only train # device, build, phase 9
     python3 chip_smoke.py --only parallel # device, build, phase 10
@@ -15,11 +16,11 @@ Phases, each printing its own line; any failure exits nonzero and prints
 no result:
 1. device: needs CUDA; prints the card's `name, power.limit` (nvidia-smi)
    and the torch / CUDA versions. TF32 is turned off (f32 parity mode).
-2. build: compiles the traversal kernel K1 (csrc/traversal.cu) and the
-   fused sepconv kernel K2 (csrc/sepconv.cu), one nvcc each, in parallel;
-   prints what ptxas says of K1's walk (registers, stack frame, spills)
-   and fails unless its state stays in registers (0-byte stack frame, no
-   spills).
+2. build: compiles the traversal kernel K1 (csrc/traversal.cu), the
+   fused sepconv kernel K2 (csrc/sepconv.cu) and ResNet50's fused stem
+   (csrc/stem.cu), one nvcc each, in parallel; prints what ptxas says of
+   K1's walk and of the stem (registers, stack frame, spills) and fails
+   unless K1's state stays in registers (0-byte stack frame, no spills).
 3. K1 against its plain PyTorch version on the card, bit for bit, at the
    main path's 33x33 stride-16 grid (B=8, K=128), at 91x161 stride 8 on
    views of one 115-channel heads tensor (as `run_heads` writes them), and
@@ -34,7 +35,11 @@ no result:
    513x513, a ragged one-block tile at rate 2 and a 5x5 map at rate 4: each
    element within one bf16 ulp, or 2^-16. K2's
    pointwise alone (identity depthwise) on one 64x128x64 product against
-   torch.matmul, to the same tolerance.
+   torch.matmul, to the same tolerance. ResNet50's fused stem against its
+   plain version at B=1, 3 and 256 513x513, 33x33, 17x49, 2x257x449 and
+   2x7x7: within one bf16 ulp (with a floor of 2^-16 of the output's
+   scale); its launches in a ResNet50 s16 2x129x129 forward (1 in bf16,
+   0 in float32, 53 convs each) and in an m101 bf16 forward (0).
 4. float32 parity on the card, fixture m50 s16 weights, synthesized photos:
    CUDA heads against CPU heads within 1e-4 of each head's scale; CUDA
    decode_batch (through K1) against CPU decode_batch (plain version) on
@@ -49,7 +54,9 @@ no result:
    K2's (10, one forward) over exactly this run. Then the raw-frame path
    (device_resize_to=(513, 513)) on 16 BGR 720x1280 frames, with its own
    counts: shapes, finite values, equal to preprocess -> forward -> decode
-   chained by hand.
+   chained by hand. Then the ResNet50 main path: PoseNetPipeline over
+   ResNet50(16, bf16, random init) on 8 uint8 513x513 frames, the stem's
+   launches (1) and the trunk's convs (53) counted over exactly that call.
 6. serving, m101 s16 bf16 513x513, min_pose_score 0 so that poses come
    out: (a) export a `cuda` artifact at batch sizes (1, 8) with
    `torch.export`, load it, and hold it bitwise to PoseNetPipeline on 8
@@ -79,7 +86,10 @@ no result:
    against the cuDNN conv pair the trunk ran before, beside its bound, and
    the same for each dilated layer of the benchmark's cells at the cell's
    batch (b128 33x33 at rate 2; b4 91x161 at rates 2 and 4), the cuDNN
-   pair there dilated as the trunk ran it before K2 took those layers; K1
+   pair there dilated as the trunk ran it before K2 took those layers; the
+   stem at b256 513x513 held to its plain version, then timed against it
+   and against cuDNN's fused conv-bias-ReLU + F.max_pool2d (the calls the
+   trunk ran before), beside its bound; K1
    at B=128, K=128, held to its plain version and timed against it, by
    CUDA graph replay (the device alone) and per call by CUDA events (host
    dispatch included), beside its bound (the hops that fetch in this run's
@@ -209,7 +219,8 @@ no result:
    epochs, 16 + 4 synthesized images; needs cv2): held-out OKS and mAP
    before and after.
 Then one JSON line describing the kernels (K1's and K2's with their
-launches on each path of phases 5, 8, 9, 10, 11 and 12), and as the last line
+launches on each path of phases 5, 8, 9, 10, 11 and 12, and the stem's,
+its `launches` from phase 5's ResNet50 call), and as the last line
 {"ok": true, "device": {...}}. Its times are CUDA events per call (host
 dispatch included), with one exception: K1's `ms` is CUDA graph replay,
 the device alone, because its per-call time is the host's; K1's
@@ -220,11 +231,13 @@ and 9, then K1's and K2's timing of 7; `--only parallel` the same with
 phase 10. `--only k1` runs phases 1, 2, K1's part of
 3 and K1's timing of 7; `--only apps` runs phases 1, 2 and 8, its K1
 entry timed at the single pose's shape; `--only k2` runs phases 1, 2, K2's part of 3, the
-bf16 trunk check of 4 and K2's per-layer timing of 7; `--only int8` runs
+bf16 trunk check of 4 and K2's per-layer timing of 7; `--only stem` runs
+phases 1, 2, the stem's part of 3, phase 5's ResNet50 call (whose count
+is its `launches`, as in the full run) and its timing of 7; `--only int8` runs
 phases 1, 2 and 11, then K1's timing of 7; `--only tools` runs phases 1, 2
 and 12, then K1's and K2's timing of 7; each then prints the same two
-lines (the kernel's entry; its `launches` from the checks, as
-`launches_from` says).
+lines (the kernel's entry; but for the stem's, its `launches` from the
+checks, as `launches_from` says).
 
 The run needs no network: `load_model` without a checkpoint would try
 the tfjs download, so the run's `download._fetch` fails at once as
@@ -268,9 +281,9 @@ from posenet_tpu_torch.config import DecodeConfig, ModelConfig, TrainConfig
 from posenet_tpu_torch.converter import weights
 from posenet_tpu_torch.decode import (_BWD_LEVELS, _FWD_LEVELS, DecodedPoses, _prepare_decode,
                                      decode_batch)
-from posenet_tpu_torch.models import mobilenet_v1, quantized
-from posenet_tpu_torch.models.model_factory import PoseNet
-from posenet_tpu_torch.ops import _build, sepconv, traversal
+from posenet_tpu_torch.models import mobilenet_v1, quantized, resnet50
+from posenet_tpu_torch.models.model_factory import PoseNet, ResNet50
+from posenet_tpu_torch.ops import _build, sepconv, stem, traversal
 from posenet_tpu_torch.parallel import mesh as mesh_lib
 from posenet_tpu_torch.parallel import spatial
 from posenet_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
@@ -300,6 +313,12 @@ K1_SOURCE = 'posenet_tpu_torch/csrc/traversal.cu'
 K1_REPLACES = 'posenet_tpu/ops/pallas/traversal.py:551'
 K2_SOURCE = 'posenet_tpu_torch/csrc/sepconv.cu'
 K2_REPLACES = 'posenet_tpu/ops/pallas/sepconv.py:228'
+STEM_SOURCE = 'posenet_tpu_torch/csrc/stem.cu'
+# (B, H, W) of the stem's checks: the cell's 513x513 at B = 1, 3 and 256,
+# maps of one or two tiles, odd sides, a 720p-like 257x449 and the least
+# input it takes.
+STEM_SHAPES = ((1, 513, 513), (3, 513, 513), (256, 513, 513), (1, 33, 33), (1, 17, 49),
+               (2, 257, 449), (2, 7, 7))
 # (H, W, C_in, C_out, rate-1 K2 layers of one m101 s16 513x513 forward at
 # this shape), then the other rate-1 K2 layers of the four models at
 # 513x513: the C_in 16 and 24 stems of m50 and m75, m101 s32's last (the
@@ -867,16 +886,23 @@ def ptxas_report(log: str, kernel: str):
 
 
 def build_phase():
-    """Phase 2: K1 and K2, one nvcc each, in parallel, then loaded; what
-    ptxas says of K1's walk, which must keep its state in registers."""
+    """Phase 2: K1, K2 and the stem, one nvcc each, in parallel, then
+    loaded; what ptxas says of the stem and of K1's walk, which must keep
+    its state in registers."""
     t0 = time.perf_counter()
-    libs = _build.build_all(['traversal', 'sepconv'])
+    libs = _build.build_all(['traversal', 'sepconv', 'stem'])
     for name in libs:
         _build.load(name)
     print(f'build: K1 {K1_SOURCE} -> {os.path.relpath(libs["traversal"], REPO)}, '
-          f'K2 {K2_SOURCE} -> {os.path.relpath(libs["sepconv"], REPO)} in '
+          f'K2 {K2_SOURCE} -> {os.path.relpath(libs["sepconv"], REPO)}, '
+          f'stem {STEM_SOURCE} -> {os.path.relpath(libs["stem"], REPO)} in '
           f'{time.perf_counter() - t0:.2f} s (nvcc {" ".join(_build.NVCC_FLAGS)})',
           flush=True)
+    regs, frame, spill_st, spill_ld, lines = ptxas_report(_build.build_log('stem'),
+                                                          'stem_conv_relu_maxpool_kernel')
+    print(f'build: stem_conv_relu_maxpool_kernel, ptxas: {regs} registers, {frame} bytes '
+          f'stack frame, {spill_st} bytes spill stores, {spill_ld} bytes spill loads '
+          f'({lines})', flush=True)
     regs, frame, spill_st, spill_ld, lines = ptxas_report(_build.build_log('traversal'),
                                                           'traverse_kernel')
     print(f'build: K1 traverse_kernel, ptxas: {regs} registers, {frame} bytes stack frame, '
@@ -1159,6 +1185,176 @@ def k2_entry(launches, err, timing) -> dict:
             'max_abs_err': max(err, timing_err),
             'ms': k2_ms, 'plain_ms': plain_ms, 'bound_ms': bound,
             'bound_by': bound_by, 'library_ms': pair_ms, 'dilated': dilated}
+
+
+def stem_args(b, h, w, seed, dev):
+    """Frames as `resnet50.normalize` writes them (uint8 RGB plus the
+    ImageNet mean, bf16 NHWC) and He-scaled stem parameters as
+    `resnet50.cast_params` keeps them (bf16, kernel in channels_last)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, generator=g, device=dev)
+    x = resnet50.normalize(frames, {'mean': torch.tensor(resnet50.IMAGENET_MEAN, device=dev)},
+                           torch.bfloat16)
+    wt = torch.randn((64, 3, 7, 7), generator=g, device=dev) * (2 / 147) ** 0.5
+    bias = torch.randn((64,), generator=g, device=dev)
+    return (x, wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+            bias.to(torch.bfloat16))
+
+
+def stem_against_plain(args):
+    """(within one bf16 ulp, max abs difference, share bitwise equal) of the
+    kernel against its plain version; the ulp has a floor of 2^-16 of the
+    output's scale, where the float32 sums' order sets the gap near zero."""
+    got = stem.stem(*args).float()
+    ref = stem.stem_reference(*args).float()
+    torch.cuda.synchronize()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    floor = 2.0 ** -16 * max(1.0, float(ref.abs().max()))
+    diff = (got - ref).abs()
+    return (bool((diff <= ulp.clamp_min(floor)).all()), float(diff.max()),
+            float((diff == 0).float().mean()))
+
+
+def stem_bound_ms(b, h, w):
+    """(the least time of the fused stem, what bounds it): the frames read
+    once and the pooled features written once at HBM speed, against the
+    conv's products on the bf16 tensor cores."""
+    hc, wc = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    nbytes = 2 * b * (h * w * 3 + stem.output_size(h) * stem.output_size(w) * 64)
+    flops = 2.0 * b * hc * wc * 64 * 147
+    mem_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
+    return (ops_ms, 'operations') if ops_ms >= mem_ms else (mem_ms, 'bytes')
+
+
+def stem_checks(dev) -> float:
+    """The stem kernel against its plain version at `STEM_SHAPES`; returns
+    the max abs difference."""
+    err_max = 0.0
+    for i, (b, h, w) in enumerate(STEM_SHAPES):
+        ok, err, equal = stem_against_plain(stem_args(b, h, w, 300 + i, dev))
+        err_max = max(err_max, err)
+        check(ok, f'stem kernel differs from its plain version at B={b} {h}x{w} beyond one '
+                  f'bf16 ulp (max {err})')
+        print(f'stem vs plain: B={b} {h}x{w}: within one bf16 ulp, max abs {err:.3g}, share '
+              f'bitwise equal {equal:.6f}', flush=True)
+        torch.cuda.empty_cache()
+    return err_max
+
+
+def stem_launches(dev) -> dict:
+    """The stem's launches in one ResNet50 s16 bf16 forward at 2x129x129
+    (53 convs, the stem one launch of the kernel), a float32 one (no
+    launch) and an m101 bf16 one (no launch), by path."""
+    cfg32 = ModelConfig(output_stride=16, architecture='resnet50')
+    params = resnet50.init_params(torch.Generator().manual_seed(9), cfg32)
+    x = stem_args(2, 129, 129, 9, dev)[0]
+    counts = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = dataclasses.replace(cfg32, compute_dtype=dtype)
+        launches, convs = stem.launches, resnet50.convs
+        with torch.no_grad():
+            resnet50.forward(resnet50.cast_params(params, dtype, dev), x, cfg)
+        torch.cuda.synchronize()
+        counts[dtype] = stem.launches - launches
+        check(resnet50.convs - convs == 53,
+              f'ResNet50 {dtype} forward counted {resnet50.convs - convs} convs, not 53')
+    cfg101 = ModelConfig(model_id=101, output_stride=16, compute_dtype=torch.bfloat16)
+    p101 = mobilenet_v1.cast_params(mobilenet_v1.init_params(torch.Generator().manual_seed(9),
+                                                             cfg101), torch.bfloat16, dev)
+    launches = stem.launches
+    with torch.no_grad():
+        mobilenet_v1.forward(p101, torch.zeros((2, 129, 129, 3), device=dev), cfg101)
+    torch.cuda.synchronize()
+    counts['m101'] = stem.launches - launches
+    check(counts == {torch.bfloat16: 1, torch.float32: 0, 'm101': 0},
+          f'stem launches a forward: {counts} (want bf16 1, float32 0, m101 0)')
+    print(f'stem launches a forward: ResNet50 bf16 {counts[torch.bfloat16]}, float32 '
+          f'{counts[torch.float32]} (53 convs each), m101 bf16 {counts["m101"]}', flush=True)
+    return {'ResNet50 s16 bf16 forward 2x129x129': counts[torch.bfloat16],
+            'ResNet50 s16 float32 forward 2x129x129': counts[torch.float32],
+            'm101 s16 bf16 forward 2x129x129': counts['m101']}
+
+
+def stem_main_path(dev) -> int:
+    """Phase 5's ResNet50 call: PoseNetPipeline over ResNet50(16, bf16,
+    random init) on 8 uint8 513x513 frames, as the r50 cell runs it, with
+    `stem.launches` and `resnet50.convs` set to 0 just before the call and
+    read just after; returns the stem's launches (1)."""
+    pipe = PoseNetPipeline(ResNet50(16, compute_dtype=torch.bfloat16, device=dev))
+    g = torch.Generator(device=dev).manual_seed(5)
+    frames8 = torch.randint(0, 256, (8, 513, 513, 3), generator=g, device=dev,
+                            dtype=torch.uint8)
+    pipe.warmup((513, 513), batch=8)
+    torch.cuda.synchronize()
+    stem.launches = resnet50.convs = 0
+    poses = pipe(frames8)
+    torch.cuda.synchronize()
+    launches, convs = stem.launches, resnet50.convs
+    check(launches == 1 and convs == 53,
+          f'ResNet50 main path: the stem launched {launches} times and the trunk counted '
+          f'{convs} convs in one call (want 1 and 53)')
+    check(tuple(poses.keypoint_coords.shape) == (8, 10, 17, 2),
+          f'ResNet50 keypoint_coords shape {tuple(poses.keypoint_coords.shape)}')
+    check(all(bool(torch.isfinite(t.float()).all()) for t in poses),
+          'ResNet50 main path: non-finite output')
+    print(f'main path: ResNet50 s16 bf16 8x513x513 -> {tuple(poses.keypoint_coords.shape)}, '
+          f'finite; stem launches {launches}, trunk convs {convs} in the call', flush=True)
+    del pipe, frames8, poses
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stem_timing(dev, batch=256, h=513, w=513) -> dict:
+    """The stem at the cell's b256 513x513, held to its plain version, then
+    timed in turns (plain, kernel, library, library, kernel, plain) by CUDA
+    events against its plain version and against the library calls the
+    trunk ran before (cuDNN's fused conv-bias-ReLU and F.max_pool2d),
+    beside its bound."""
+    args = stem_args(batch, h, w, 400, dev)
+    x, wt, bias = args
+    ok, err, equal = stem_against_plain(args)
+    check(ok, f'stem kernel differs from its plain version at B={batch} {h}x{w} (max {err})')
+    x_nchw = x.permute(0, 3, 1, 2)
+
+    def library():
+        y = torch.cudnn_convolution_relu(x_nchw, wt, bias, (2, 2), (3, 3), (1, 1), 1)
+        return torch.nn.functional.max_pool2d(y, 3, stride=2, padding=1)
+
+    runs = {}
+    for name, fn, iters in (('plain', lambda: stem.stem_reference(*args), 3),
+                            ('kernel', lambda: stem.stem(*args), 20),
+                            ('library', library, 20), ('library', library, 20),
+                            ('kernel', lambda: stem.stem(*args), 20),
+                            ('plain', lambda: stem.stem_reference(*args), 3)):
+        runs.setdefault(name, []).append(cuda_ms(fn, iters))
+        torch.cuda.empty_cache()
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    lib_equal = float((library() == stem.stem(*args)).float().mean())
+    bound, bound_by = stem_bound_ms(batch, h, w)
+    print(f'stem b{batch} {h}x{w}: kernel {ms["kernel"]:.4f} ms, library (cuDNN conv-bias-ReLU '
+          f'+ max pool) {ms["library"]:.4f} ms, bound {bound:.4f} ms ({bound_by}), kernel / '
+          f'bound {ms["kernel"] / bound:.1f}x, plain {ms["plain"]:.4f} ms; vs plain max abs '
+          f'{err:.3g}, share bitwise equal {equal:.6f}; share of the library\'s values bitwise '
+          f'equal to the kernel\'s {lib_equal:.6f} (runs plain, kernel, library, library, kernel, plain: {runs})', flush=True)
+    del args, x, x_nchw
+    torch.cuda.empty_cache()
+    return {'ms': ms['kernel'], 'plain_ms': ms['plain'], 'library_ms': ms['library'],
+            'bound_ms': bound, 'bound_by': bound_by, 'err': err}
+
+
+def stem_entry(launches, by_path, err, timing) -> dict:
+    """The stem's entry of the kernels line: `launches` from phase 5's
+    ResNet50 call, the forwards of the checks under `launches_by_path`;
+    `library_ms` is cuDNN's fused conv-bias-ReLU plus F.max_pool2d, which
+    the port no longer calls."""
+    return {'name': 'stem_conv_relu_maxpool', 'route': 'cuda', 'source': STEM_SOURCE,
+            'replaces': None, 'launches': launches,
+            'launches_by_path': {'main path (phase 5, ResNet50 s16 bf16 b8 513x513)': launches,
+                                 **by_path},
+            'max_abs_err': max(err, timing['err']),
+            'ms': timing['ms'], 'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
+            'bound_by': timing['bound_by'], 'library_ms': timing['library_ms'],
+            'shape': 'b256 513x513'}
 
 
 class FakeCapture:
@@ -2884,6 +3080,8 @@ def full_run(dev, smi) -> list:
     """Phases 3-12; returns the kernels' entries."""
     max_err = k1_checks(dev)
     k2_err = k2_checks(dev)
+    stem_err = stem_checks(dev)
+    stem_by_path = stem_launches(dev)
 
     # 4. float32 parity on the card (fixture weights, synthesized photos)
     params = weights.load_params_npz(FIXTURE)
@@ -2996,6 +3194,9 @@ def full_run(dev, smi) -> list:
           f'{tuple(raw_poses.keypoint_coords.shape)}, finite, bitwise equal to the '
           f'hand-chained path; K1 launches {raw_k1}, K2 launches {raw_k2}', flush=True)
 
+    # 5c. the ResNet50 main path: the stem's launches over one pipeline call
+    stem_count = stem_main_path(dev)
+
     # 6. serving
     serving_phase(model, dev)
 
@@ -3058,6 +3259,7 @@ def full_run(dev, smi) -> list:
     del bgr
 
     k2_time = k2_timing(dev, batch)
+    stem_time = stem_timing(dev)
 
     k1_time = k1_timing(dev, peaked, pipe.decode_cfg)
     del peaked, frames8, bgr16, peaked8
@@ -3083,14 +3285,14 @@ def full_run(dev, smi) -> list:
     k2 = k2_entry(k2_launches, k2_err, k2_time)
     k2['launches_by_path'] = {'main path (phase 5)': k2_launches, **train_k2, **parallel_k2,
                               **{k: v['K2'] for k, v in int8_launches.items()}, **tools_k2}
-    return [k1, k2]
+    return [k1, k2, stem_entry(stem_count, stem_by_path, stem_err, stem_time)]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--only', choices=('k1', 'k2', 'apps', 'train', 'parallel',
+    parser.add_argument('--only', choices=('k1', 'k2', 'stem', 'apps', 'train', 'parallel',
                                            'multicard', 'int8', 'tools'),
-                        help='the device and build phases, then K1 or K2 alone, '
+                        help='the device and build phases, then K1, K2 or the stem alone, '
                              'phase 8 (the single pose and the apps), phase 9 '
                              '(training), phase 10 (multi-device on one card) or its '
                              'layouts across every card of a host with several, '
@@ -3128,6 +3330,10 @@ def run_phases(only, dev, smi) -> list:
         # No main path runs here: `launches` is the trunk check's (2x65x65).
         kernels = [dict(k2_entry(k2_launches, k2_err, k2_timing(dev)),
                         launches_from='bf16 trunk check at 2x65x65, not the main path')]
+    elif only == 'stem':
+        stem_err = stem_checks(dev)
+        by_path = stem_launches(dev)
+        kernels = [stem_entry(stem_main_path(dev), by_path, stem_err, stem_timing(dev))]
     elif only == 'apps':
         timing, app_launches = phase8(dev, smi)
         # No main path runs here: `launches` is the single pose's (phase 8),

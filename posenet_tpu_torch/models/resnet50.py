@@ -34,7 +34,11 @@ its one rounding. Eager passes after each bf16 conv (a float32 bias add,
 the residual add, the ReLU) took the b256 trunk 145.6 ms on an H100 80GB
 HBM3 at 700 W, the fused calls 62.7. Off the card, which has no such ops,
 the same sums run as eager passes. `cast_params` folds each projection's
-bias into its unit's last conv's, on every device alike.
+bias into its unit's last conv's, on every device alike. On the card the
+bf16 stem (conv, bias, ReLU and max pool) is one launch of the fused
+kernel `ops.stem`, whose conv output never reaches device memory; cuDNN's
+conv and `F.max_pool2d` took 15.7 ms of a b256 call on an H100 80GB HBM3
+at 700 W, writing and reading back its 2.16 GB.
 
 Each forward is traced by `profiling.span`s `resnet.stem` and
 `resnet.block1` ... `resnet.block4`, and counts its trunk convs in
@@ -51,6 +55,7 @@ import torch.nn.functional as F
 from posenet_tpu_torch import profiling
 from posenet_tpu_torch.config import ModelConfig
 from posenet_tpu_torch.models import mobilenet_v1
+from posenet_tpu_torch.ops import stem
 
 IMAGENET_MEAN = (-123.15, -115.90, -103.06)
 STEM_CHANNELS = 64
@@ -208,15 +213,40 @@ def _unit(x: torch.Tensor, u: Dict[str, Any], params: Iterator) -> torch.Tensor:
     return _conv(r, p['w'], p['b'], add=shortcut)
 
 
+def uses_stem_kernel(x_nhwc: torch.Tensor) -> bool:
+    """Whether the stem runs as the fused kernel (`ops.stem`): a bf16
+    input on the card. Float32 and the CPU take `_conv` and
+    `F.max_pool2d`."""
+    return x_nhwc.is_cuda and x_nhwc.dtype == torch.bfloat16
+
+
+def run_stem(x_nhwc: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
+    """The stem on NHWC input in the compute dtype -> (B, 64, H', W')
+    channels_last: conv 7x7/2 + bias, ReLU, max pool 3x3/2. One launch of
+    the fused kernel where `uses_stem_kernel`, else `_conv` and
+    `F.max_pool2d`; one conv of `convs` either way."""
+    global convs
+    if uses_stem_kernel(x_nhwc):
+        convs += 1
+        # No-ops for `cast_params`'s parameters; `init_params`'s (float32,
+        # NCHW memory) are cast here, as `_conv` casts its kernels.
+        return stem.stem(x_nhwc, p['w'].to(torch.bfloat16, memory_format=torch.channels_last),
+                         p['b'].to(torch.bfloat16))
+    return F.max_pool2d(_conv(x_nhwc.permute(0, 3, 1, 2), p['w'], p['b'], stride=2), 3,
+                        stride=2, padding=1)
+
+
 def run_trunk(params: Dict[str, Any], x_nhwc: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """NHWC input (RGB plus the mean) -> (B, 2048, R, R') features in the
-    compute dtype, channels_last; one span for the stem and one a block."""
-    x = x_nhwc.to(cfg.compute_dtype).permute(0, 3, 1, 2)
+    compute dtype, channels_last; one span for the stem (`run_stem`) and
+    one a block. The input is made NHWC-contiguous in the compute dtype
+    (a no-op for `normalize`'s output; one pass for a permuted NCHW input,
+    as `PoseNet.forward` passes it)."""
+    x_nhwc = x_nhwc.to(cfg.compute_dtype, memory_format=torch.contiguous_format)
     conv_params = iter(params['backbone'])
-    with profiling.span('resnet.stem', x.device):
-        stem = next(conv_params)
-        x = F.max_pool2d(_conv(x, stem['w'], stem['b'], stride=2), 3, stride=2, padding=1)
+    with profiling.span('resnet.stem', x_nhwc.device):
+        x = run_stem(x_nhwc, next(conv_params))
     plan = unit_plan(cfg.output_stride)
     for block in range(1, len(BLOCKS) + 1):
         with profiling.span(f'resnet.block{block}', x.device):
