@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main path on one NVIDIA GPU, check it, and time
+its hand-written kernels alone at the benchmark's shapes.
 
     python3 chip_smoke.py             # every phase: what a run must pass
     python3 chip_smoke.py --only k1   # device, build, K1's checks and timing
@@ -28,12 +29,12 @@ no result:
    K2 against its plain version at B=2 at every (H, W, C_in, C_out) that
    a K2 layer of the four models has at 513x513 (17x17 1024->1024, m101
    s32's last, is the BM = 64 path), and at B=1 9x9 512->512 (one block,
-   a ragged pixel tile); then the dilated layers: those of the benchmark's
-   cells (m101 s16 b128's layer 13, 33x33 1024->1024 at rate 2, and m101
-   s8 720p's layers 7-13 at 91x161, 512->512 and 512->1024 at rate 2,
-   1024->1024 at rate 4) at B=2, the rest of the four models' s8 layers at
-   513x513, a ragged one-block tile at rate 2 and a 5x5 map at rate 4: each
-   element within one bf16 ulp, or 2^-16. K2's
+   a ragged pixel tile); then the dilated layers: m101
+   s16's layer 13 (33x33 1024->1024 at rate 2) and m101 s8 720p's layers
+   7-13 (91x161, 512->512 and 512->1024 at rate 2, 1024->1024 at rate 4)
+   at B=2, the rest of the four models' s8 layers at 513x513, a ragged
+   one-block tile at rate 2 and a 5x5 map at rate 4: each element within
+   one bf16 ulp, or 2^-16. K2's
    pointwise alone (identity depthwise) on one 64x128x64 product against
    torch.matmul, to the same tolerance. ResNet50's fused stem against its
    plain version at B=1, 3 and 256 513x513, 33x33, 17x49, 2x257x449 and
@@ -67,53 +68,44 @@ no result:
    127.0.0.1, 16 raw frames posted concurrently, each reply equal to the
    in-process result for its frame at a served batch size, /healthz and
    /statsz; (c) 720x1280 BGR frames resized on the host by
-   native_preprocess.resize_rgb (the native library where cv2 is absent),
-   ms a frame (and cv2's where present), posted raw and checked the same
-   way (the server's JPEG/PNG path needs cv2 and then resizes with it, so
-   it never reaches the native library); a host-clock breakdown of one
-   b32 chunk through the server's own steps, and its device busy time
-   (torch.profiler); (d) tools/serve_loadgen.py unchanged against the live
-   server at batch sizes (1, 8, 32), 32 clients for 10 s, at
-   pipeline_depth 2 and 1: req/s, p50/p99 latency, the batch histogram,
-   and the CPU seconds of the server process and of the load generator.
-7. timing (CUDA events / synchronize-bracketed host clock): fused m101 s16
-   513x513 b128 bf16 forward + peaked decode (`bench_torch.fused_step`,
-   the step bench_torch.py times) in img/s, best of 3 windows of 10;
-   forward and decode alone; the raw-frame path from 720x1280 at b128 in
-   img/s; `_prepare_decode` at b128 (CUDA graph and CUDA events) beside
-   the row copies it no longer makes; per K2 layer at b128, K2 held to its
-   plain version (one bf16 ulp, or 2^-16) and then timed against it and
-   against the cuDNN conv pair the trunk ran before, beside its bound, and
-   the same for each dilated layer of the benchmark's cells at the cell's
-   batch (b128 33x33 at rate 2; b4 91x161 at rates 2 and 4), the cuDNN
-   pair there dilated as the trunk ran it before K2 took those layers; the
-   stem at b256 513x513 held to its plain version, then timed against it
-   and against cuDNN's fused conv-bias-ReLU + F.max_pool2d (the calls the
-   trunk ran before), beside its bound; K1
-   at B=128, K=128, held to its plain version and timed against it, by
-   CUDA graph replay (the device alone) and per call by CUDA events (host
-   dispatch included), beside its bound (the hops that fetch in this run's
-   walk) and its latency floor (one candidate alone).
+   native_preprocess.resize_rgb (the native library where cv2 is absent;
+   within 1 LSB of cv2's where cv2 is present), posted raw and checked the
+   same way (the server's JPEG/PNG path needs cv2 and then resizes with
+   it, so it never reaches the native library); (d) tools/serve_loadgen.py
+   unchanged against the live server (batch sizes (1, 8, 32)) with 32
+   clients for 3 s, at pipeline_depth 2 and 1: exit 0, replies, no error.
+7. the kernels alone at the benchmark's shapes: each launch of K1, K2 and
+   the stem in one call of each cell of BENCHMARK.json
+   (`cell_kernel_shapes`: K2's layers of an m101 forward, the stem of a
+   ResNet50 forward, K1 in the decode, at the cell's batch and frame
+   size), held to its plain version, then timed by CUDA events in turns
+   against it and against the library calls it replaces, beside its bound
+   at the yardstick's peaks (`benchmarks/yardstick.py`): K2 against the
+   cuDNN depthwise + pointwise pair the trunk ran before (dilated as the
+   layer is, with its bias and ReLU6 passes), bound
+   `yardstick.k2_bound_ms`, the bound `k2_roofline.offline` divides by;
+   the stem against cuDNN's fused conv-bias-ReLU + F.max_pool2d, bound
+   `stem_bound_ms`; K1 on peaked heads at the cell's grid and decode
+   config, by CUDA graph replay (the device alone) and per call by CUDA
+   events (host dispatch included), bound `k1_bound_ms` (the hops that
+   fetch in this run's walk), beside its latency floor (one candidate
+   alone).
 8. the single pose and the apps, in float32 as the JAX apps run. (1)
    `decode_single_pose` on the card against the same call on the CPU,
    bitwise with the same root and one K1 launch a call, on synthesized
    heads at 33x33 s16 and 91x161 s8, the fixture m50 s16's heads of a
    synthesized photo and a heatmap with nothing above the threshold; K1 at
-   that B = K = 1 shape held to its plain version and timed, and the whole
-   call timed on the card and on the CPU. Where cv2 imports (else one line
-   says so): (2) each app's `main(argv)` in-process with its default
-   device, m101 s16 random weights, float32 with TF32 off (each app turns
-   it off), inputs written with numpy and cv2 into a temporary directory
-   (the working directory meanwhile): image_demo on 4 photos 720x1280,
-   cold and then warm (the second run at a shape in the process),
-   benchmark per frame (20 frames; again with --profile for its stage
-   breakdown) and at --batch_size 128 --image_size 513 with --profile (the
-   traced batch's device time by kernel), webcam_demo on a stand-in
-   capture of 8 frames cold and 24 warm, then webcam_demo's own loop with
-   `profiling.span` around the helpers it calls, video_demo on a 40-frame
+   that B = K = 1 shape held to its plain version. Where cv2 imports (else
+   one line says so): (2) each app's `main(argv)` in-process with its
+   default device, m101 s16 random weights, float32 with TF32 off (each
+   app turns it off), inputs written with numpy and cv2 into a temporary
+   directory (the working directory meanwhile): image_demo on 4 photos
+   720x1280, cold and then warm (the second run at a shape in the
+   process), benchmark per frame (20 frames; again with --profile) and at
+   --batch_size 128 --image_size 513 with --profile, webcam_demo on a
+   stand-in capture of 8 frames cold and 24 warm, video_demo on a 40-frame
    720x1280 mp4 at 513x513 batch 16, with the host resize and with
-   --device_preprocess; outputs, K1's launches over each run, and each
-   app's FPS line beside the card's `name, power.limit`. Then the
+   --device_preprocess; outputs and K1's launches over each run. Then the
    per-frame decode at the per-frame apps' grids (46x81 and 33x58 from
    one 720x1280 frame's m101 heads): `decode_batch` on the card against
    the CPU, and K1 on its recorded arguments against its plain version.
@@ -139,15 +131,7 @@ no result:
    loss, an eval decode an epoch), none in float32; K1 once for each eval
    batch and visual dump. (4) `posenet-export-torch --from_checkpoint` of
    the bf16 run's checkpoint to a `cuda` artifact, bitwise equal to
-   PoseNetPipeline over the restored params. (5) Timing, beside the card's
-   `name, power.limit`, at b16 and b2, float32 and bf16: the median of 15
-   warm steps by CUDA events, in img/s, and the host clock over 15; the
-   split of a step into forward, loss + backward and Adam (CUDA events at
-   their edges, median of 10); the host's staging of the batch alone; the
-   device's busy share of 5 steps (`profiling.device_time_report` over a
-   `profiling.trace`, against the host clock); the peak memory of a step
-   (`torch.cuda.max_memory_allocated`); an eval batch's loss, and its
-   forward + decode + host scoring.
+   PoseNetPipeline over the restored params.
 10. multi-device on the one card, m101 s16 513x513 bf16 (published widths
    and depth, seeded random weights), every shard on cuda:0 through a
    device list that repeats it. (a) The data partition of 128 synth_photo
@@ -165,12 +149,7 @@ no result:
    one card (8 images each) against one device, or why gloo refused.
    (d) `LivePipelineBackend(num_devices=1)` and an artifact exported with
    `data_parallel_devices=1`, served, each reply equal to the in-process
-   result; the artifact bitwise equal to the pipeline. (e) Timing beside
-   the card's `name, power.limit`, each layout in turns: data-partition
-   img/s over 2 shards against the unsharded pipeline (best of 3 windows
-   of 5 b128 batches); spatial b1 latency at 1, 2 and 4 shards against the
-   plain pipeline (CUDA events, a call's mean over 20); the DP step at
-   world size 1 against the plain step (in (c)).
+   result; the artifact bitwise equal to the pipeline.
 11. the int8 trunk (`models/quantized.py`), m101 s16 513x513 (published
    widths and depth, seeded random weights). (1) `quantize_params` on the
    card bitwise equal to the CPU's; at every (M, K, N) of the b128 trunk's
@@ -188,64 +167,53 @@ no result:
    (5) A tfjs m101 checkpoint at published widths
    (tests/torch_tfjs_fixture.py) converted by `load_model`'s cold start on
    the card, no fetch: float32 heads card against CPU within 1e-4 of each
-   head's scale; its seconds. (6) Timing beside the card's `name,
-   power.limit`: the int8 and bf16 fused b128 forward + peaked decode in
-   img/s, in turns, best of 3 windows of 10; each forward alone; per layer
-   the s8 product against cuDNN's bf16 1x1 conv and its bound, and the
-   whole int8 layer against the bf16 one (K2 where it runs); a traced int8
-   batch's device time by kind of kernel; peak memory; the trunk's bound
-   (bytes / 3.35 TB/s, s8 operations / 1979 TOPS + bf16 / 989 TFLOP/s).
-12. the benchmark scripts and the tool twins on the card, each through
-   its own entry point. (a) `bench_torch.main` at its defaults (m101 s16
-   513x513 b128 bf16, published widths and depth, 3 windows of 40 fused
-   steps): its JSON line, the card's `name, power.limit` in it, >= 1 pose
-   per peaked image on average (the walk follows random displacements, so
-   an image may accept none), and one `bench_torch.fused_step` (the
-   function phase 7 times) launching K2 10 times and K1 once. (b)
-   `tools/profile_fused_torch.py` at b128: the busy ms a step, the traced
-   window's wall ms, the idle share and device ms by kind of kernel. (c)
-   `benchmark_suite_torch.py` configs 1-7 at --iters 8, each line with the
-   card and its launches in one step: both kernels in configs 1-4 (K2 as
-   many times as the model has stride-1 separable layers), K1 only in 6, K2
-   only in 7, neither in 5. (d) `decode.decode_single` on the card against
-   the CPU, bitwise, one K1 launch a call, at 33x33 s16 and 91x161 s8;
+   head's scale.
+12. the tools on the card, each through its own entry point. (a)
+   `decode.decode_single` on the card against the CPU, bitwise, one K1
+   launch a call, at 33x33 s16 and 91x161 s8;
    `mobilenet_v1.backbone_features` m101 s16 bf16 at 1x257x257 through K2
    (10 launches) against its plain version on the CPU, within 2e-3 of the
-   features' scale, max(1, max |feature|), NHWC. (e)
+   features' scale, max(1, max |feature|), NHWC. (b) `infer` in bf16 at
+   m50 s16 1x513x513, m101 s16 16x513x513, m101 s8 4x721x1281 and m101
+   s16 1x721x1281, and `decode_batch` on peaked b4 heads at the s8 1080p
+   grid (136x241): the launches of one call, K1 once and K2 once for each
+   fused layer (none in the decode), shapes and finite values, the
+   decode's poses equal to the CPU's. (c)
    `tools/verify_spatial_large_torch.py`: the spatial partition at 513x513
    s16 and 721x1281 s8 over ['cuda:0'] * 8 (every card in turn on a host
-   with several), bitwise equal to the unsharded pipeline. (f)
+   with several), bitwise equal to the unsharded pipeline. (d)
    `tools/train_accuracy_delta_torch.py` at its defaults (m50 129x129, 40
    epochs, 16 + 4 synthesized images; needs cv2): held-out OKS and mAP
    before and after.
-Then one JSON line describing the kernels (K1's and K2's with their
-launches on each path of phases 5, 8, 9, 10, 11 and 12, and the stem's,
-its `launches` from phase 5's ResNet50 call), and as the last line
-{"ok": true, "device": {...}}. Its times are CUDA events per call (host
-dispatch included), with one exception: K1's `ms` is CUDA graph replay,
-the device alone, because its per-call time is the host's; K1's
-`call_ms` is the per-call time, the method of its `plain_ms` (the plain
-version cannot be captured in a graph: it copies its stride to the
-card) and of K1's `ms` before the graph timing. `--only train` runs phases 1, 2
-and 9, then K1's and K2's timing of 7; `--only parallel` the same with
-phase 10. `--only k1` runs phases 1, 2, K1's part of
-3 and K1's timing of 7; `--only apps` runs phases 1, 2 and 8, its K1
-entry timed at the single pose's shape; `--only k2` runs phases 1, 2, K2's part of 3, the
-bf16 trunk check of 4 and K2's per-layer timing of 7; `--only stem` runs
-phases 1, 2, the stem's part of 3, phase 5's ResNet50 call (whose count
-is its `launches`, as in the full run) and its timing of 7; `--only int8` runs
-phases 1, 2 and 11, then K1's timing of 7; `--only tools` runs phases 1, 2
-and 12, then K1's and K2's timing of 7; each then prints the same two
-lines (the kernel's entry; but for the stem's, its `launches` from the
-checks, as `launches_from` says).
+Then one JSON line describing the kernels, and as the last line
+{"ok": true, "device": {...}}. Each kernel's entry has its `name`,
+`route`, `source` and `replaces`; its `launches` on the main path (the
+stem's from phase 5's ResNet50 call) or, under an `--only` mode that
+runs no main path, over the run `launches_from` names; `launches_by_path`
+(phases 5, 8, 9, 10, 11 and 12, the stem's own forwards); `max_abs_err`
+from its plain version; and, where phase 7 ran, `cells`: {cell: phase
+7's sums over the cell's launches}. A cell's sums hold `launches`, `ms`,
+`plain_ms`, `library_ms` (null for K1, which replaces no library call),
+`bound_ms` and `err`; K2's add `dilated_ms`, the stem's `bound_by`, and
+K1's `call_ms`, `floor_ms` and `dead_ms`; a cell whose launches equal an
+earlier cell's copies its sums and names that cell in `timed_in`. K1's
+`ms` is CUDA graph replay, the device alone, because its per-call time
+is the host's; its `call_ms` is the per-call time, the method of its
+`plain_ms` (the plain version cannot be captured in a graph: it copies
+its stride to the card).
+
+`--only k1` runs phases 1, 2, K1's part of 3 and K1's timing of 7;
+`--only k2` runs phases 1, 2, K2's part of 3, the bf16 trunk check of 4
+and K2's timing of 7; `--only stem` runs phases 1, 2, the stem's part of 3, phase 5's
+ResNet50 call (whose count is its `launches`, as in the full run) and
+its timing of 7; `--only apps`, `train`, `parallel`, `int8` and `tools`
+run phases 1, 2 and the phase they name, and time nothing; each prints
+the same two lines (the kernels' entries with their launches from the
+phase they ran, as `launches_from` says).
 
 The run needs no network: `load_model` without a checkpoint would try
 the tfjs download, so the run's `download._fetch` fails at once as
 offline, and the download cache is a temporary directory.
-
-Bounds (`bound_ms`) are the larger of bytes / 3.35 TB/s and operations /
-the peak rate of their type (989 TFLOP/s bf16 tensor cores, 1979 TOPS s8,
-67 TFLOP/s f32), the H100 SXM's published rates at 700 W.
 """
 
 from __future__ import annotations
@@ -259,7 +227,6 @@ import io
 import json
 import os
 import re
-import resource
 import shutil
 import subprocess
 import sys
@@ -271,9 +238,9 @@ import urllib.request
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
+from benchmarks import harness
+from benchmarks.yardstick import BF16_TENSOR_FLOPS, HBM_BYTES_S, k2_bound_ms, layer_shapes
 from posenet_tpu_torch import (PoseNetPipeline, decode, decode_single_pose, load_model,
                                native_preprocess)
 from posenet_tpu_torch.apps import full_float32
@@ -289,8 +256,6 @@ from posenet_tpu_torch.parallel import spatial
 from posenet_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from posenet_tpu_torch.pipeline import infer, infer_raw, normalize
 from posenet_tpu_torch.preprocess import preprocess_on_device, process_input
-from posenet_tpu_torch import profiling
-from posenet_tpu_torch.profiling import device_time_report, trace
 from posenet_tpu_torch.server import (LivePipelineBackend, PoseServer, _Request,
                                       make_http_server)
 from posenet_tpu_torch.serving import load_serving_artifact, save_serving_artifact
@@ -300,54 +265,46 @@ from posenet_tpu_torch.training import train_step as ts
 from posenet_tpu_torch.training.dataset import PosenetDataset
 from posenet_tpu_torch.training.ground_truth import prepare_ground_truth_data
 from tests import torch_tfjs_fixture
-from tests.torch_k1_cases import head_views, k1_reads_heads_in_place, nose_zero_heads
-from tools import profile_fused_torch, train_accuracy_delta_torch, verify_spatial_large_torch
-
-import bench_torch
-import benchmark_suite_torch
-from bench_torch import peaked_heads
+from tests.torch_k1_cases import (head_views, k1_reads_heads_in_place, nose_zero_heads,
+                                  peaked_heads)
+from tools import train_accuracy_delta_torch, verify_spatial_large_torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'fixture_m50_s16.npz')
-K1_SOURCE = 'posenet_tpu_torch/csrc/traversal.cu'
-K1_REPLACES = 'posenet_tpu/ops/pallas/traversal.py:551'
-K2_SOURCE = 'posenet_tpu_torch/csrc/sepconv.cu'
-K2_REPLACES = 'posenet_tpu/ops/pallas/sepconv.py:228'
-STEM_SOURCE = 'posenet_tpu_torch/csrc/stem.cu'
+# Each hand-written kernel: (its name, its source, the TPU kernel it replaces).
+KERNELS = {
+    'K1': ('traverse_all_candidates', 'posenet_tpu_torch/csrc/traversal.cu',
+           'posenet_tpu/ops/pallas/traversal.py:551'),
+    'K2': ('sepconv', 'posenet_tpu_torch/csrc/sepconv.cu',
+           'posenet_tpu/ops/pallas/sepconv.py:228'),
+    'stem': ('stem_conv_relu_maxpool', 'posenet_tpu_torch/csrc/stem.cu', None),
+}
 # (B, H, W) of the stem's checks: the cell's 513x513 at B = 1, 3 and 256,
 # maps of one or two tiles, odd sides, a 720p-like 257x449 and the least
 # input it takes.
 STEM_SHAPES = ((1, 513, 513), (3, 513, 513), (256, 513, 513), (1, 33, 33), (1, 17, 49),
                (2, 257, 449), (2, 7, 7))
-# (H, W, C_in, C_out, rate-1 K2 layers of one m101 s16 513x513 forward at
-# this shape), then the other rate-1 K2 layers of the four models at
-# 513x513: the C_in 16 and 24 stems of m50 and m75, m101 s32's last (the
-# BM = 64 path), and the rest of m50, m75 and m101 s8.
-K2_M101_SHAPES = ((257, 257, 32, 64, 1), (129, 129, 128, 128, 1), (65, 65, 256, 256, 1),
-                  (33, 33, 512, 512, 5), (33, 33, 512, 1024, 1))
-K2_OTHER_SHAPES = ((257, 257, 16, 32, 0), (257, 257, 24, 48, 0), (17, 17, 1024, 1024, 0),
-                   (129, 129, 64, 64, 0), (129, 129, 96, 96, 0), (65, 65, 128, 256, 0),
-                   (65, 65, 192, 192, 0), (65, 65, 192, 384, 0), (65, 65, 256, 512, 0),
-                   (33, 33, 256, 256, 0), (33, 33, 384, 384, 0))
-# The dilated K2 layers of the benchmark's cells: (cell, batch, H, W, C_in,
-# C_out, rate, layers of one forward at this shape): m101 s16 513x513
-# b128's layer 13; m101 s8 721x1281 b4's layers 7-11, 12 and 13.
-K2_DILATED_CELL_SHAPES = (
-    ('m101-s16.offline-b128', 128, 33, 33, 1024, 1024, 2, 1),
-    ('m101-s8.offline-720p-b4', 4, 91, 161, 512, 512, 2, 5),
-    ('m101-s8.offline-720p-b4', 4, 91, 161, 512, 1024, 2, 1),
-    ('m101-s8.offline-720p-b4', 4, 91, 161, 1024, 1024, 4, 1))
-# (H, W, C_in, C_out, rate): the other dilated layers of the four models at
-# 513x513 (m50, m75 and m101 at s8), a ragged one-block pixel tile, a map
-# smaller than the taps' reach, and C_in 64 (the BN = 16 fallback).
+# (H, W, C_in, C_out) of the rate-1 K2 layers of one m101 s16 513x513
+# forward, then the other rate-1 K2 layers of the four models at 513x513:
+# the C_in 16 and 24 stems of m50 and m75, m101 s32's last (the BM = 64
+# path), and the rest of m50, m75 and m101 s8.
+K2_M101_SHAPES = ((257, 257, 32, 64), (129, 129, 128, 128), (65, 65, 256, 256),
+                  (33, 33, 512, 512), (33, 33, 512, 1024))
+K2_OTHER_SHAPES = ((257, 257, 16, 32), (257, 257, 24, 48), (17, 17, 1024, 1024),
+                   (129, 129, 64, 64), (129, 129, 96, 96), (65, 65, 128, 256),
+                   (65, 65, 192, 192), (65, 65, 192, 384), (65, 65, 256, 512),
+                   (33, 33, 256, 256), (33, 33, 384, 384))
+# (H, W, C_in, C_out, rate): the dilated K2 layers of m101 s16 at 513x513
+# (layer 13) and of m101 s8 at 721x1281 (layers 7-11, 12 and 13).
+K2_M101_DILATED = ((33, 33, 1024, 1024, 2), (91, 161, 512, 512, 2), (91, 161, 512, 1024, 2),
+                   (91, 161, 1024, 1024, 4))
+# The other dilated layers of the four models at 513x513 (m50, m75 and
+# m101 at s8), a ragged one-block pixel tile, a map smaller than the taps'
+# reach, and C_in 64 (the BN = 16 fallback).
 K2_OTHER_DILATED = ((65, 65, 256, 256, 2), (65, 65, 384, 384, 2), (65, 65, 512, 512, 2),
                     (65, 65, 512, 1024, 2), (65, 65, 1024, 1024, 4), (9, 9, 512, 512, 2),
                     (5, 5, 1024, 1024, 4), (11, 19, 64, 48, 2))
 HEAD_ORDER = ('heatmap', 'offset', 'displacement_fwd', 'displacement_bwd')
-HBM_BYTES_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12
-S8_TOPS = 1979e12
 # The module: the converter package exports the function `download` under its name.
 download = importlib.import_module('posenet_tpu_torch.converter.download')
 
@@ -488,15 +445,36 @@ def k2_against_plain(args, rate=1):
     return ok, float(diff.max()), float((diff == 0).float().mean())
 
 
-def k2_bound_ms(b, h, w, c_in, c_out):
-    """(bound ms, what bounds it) of one K2 call: each input read once and
-    the output written once, in bytes; the pointwise's products on the
-    bf16 tensor cores and the depthwise's 9 taps in f32, each at its peak."""
-    m = b * h * w
-    nbytes = 2 * m * (c_in + c_out) + 2 * 9 * c_in + 4 * c_in + 2 * c_in * c_out + 4 * c_out
-    mem_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = max(2 * m * c_in * c_out / BF16_TENSOR_FLOPS, 2 * 9 * m * c_in / F32_FLOPS) * 1e3
-    return (mem_ms, 'bytes') if mem_ms >= ops_ms else (ops_ms, 'operations')
+def benchmark_cells() -> list:
+    """The names of BENCHMARK.json's cells, in its order."""
+    return [w['name'] for w in harness.load_json(harness.BENCHMARK_JSON)['workloads']]
+
+
+def cell_kernel_shapes(workload: str) -> list:
+    """Each launch of a hand-written kernel in one call of the cell
+    `workload` of BENCHMARK.json, at the cell's batch and frame size (its
+    configuration's `model` and `decode`, its traffic's `batch`, `height`
+    and `width`), as a dict with `kernel` ('K1', 'K2' or 'stem'), `batch`,
+    `h` and `w`. An m101 forward launches K2 on each stride-1 separable
+    layer of `yardstick.layer_shapes` (the layers `k2_roofline.offline`
+    bounds), with the layer's index `layer`, its map `h` x `w`, `c_in`,
+    `c_out` and dilation `rate`; a ResNet50 forward launches the stem once
+    on the `h` x `w` frames; the decode launches K1 once on the heads'
+    grid, with the cell's `stride` and `decode` (a DecodeConfig)."""
+    cell = harness.load_cell(workload)
+    model, traffic = cell.config['model'], cell.traffic
+    b, height, width, stride = (traffic['batch'], traffic['height'], traffic['width'],
+                                model['output_stride'])
+    if model.get('architecture') == 'resnet50':
+        launches = [{'kernel': 'stem', 'batch': b, 'h': height, 'w': width}]
+    else:
+        launches = [{'kernel': 'K2', 'batch': b, 'layer': i, 'h': l['h'], 'w': l['w'],
+                     'c_in': l['c_in'], 'c_out': l['c_out'], 'rate': l['rate']}
+                    for i, l in enumerate(layer_shapes(model['model_id'], stride, height, width))
+                    if l['kind'] == 'sep' and l['stride'] == 1]
+    return launches + [{'kernel': 'K1', 'batch': b, 'h': (height - 1) // stride + 1,
+                        'w': (width - 1) // stride + 1, 'stride': stride,
+                        'decode': DecodeConfig(**cell.config['decode'])}]
 
 
 def k1_fetches(args, h, w, stride):
@@ -539,7 +517,7 @@ def k1_bound_ms(b, k, fetches):
     candidates reads its score, keypoint and root (16 bytes) and writes 17
     scores, coordinate pairs and offset pairs (340); each of the `fetches`
     hops (`k1_fetches`) reads one displacement pair (8) and the landing
-    cell's score and offset pair (12)."""
+    cell's score and offset pair (12), at the yardstick's HBM peak."""
     return (b * k * (16 + 340) + fetches * (8 + 12)) / HBM_BYTES_S * 1e3
 
 
@@ -656,7 +634,8 @@ def serve_and_check(backend, name, frames, what):
 
 
 def serving_phase(model, dev):
-    """Phase 6: export/load, serve raw frames, host resize, served timing."""
+    """Phase 6: export and load, serve raw frames, serve host-resized
+    frames, serve under load at pipeline_depth 2 and 1."""
     dcfg = DecodeConfig(min_pose_score=0.0)
     g = torch.Generator(device=dev).manual_seed(3)
     frames8 = torch.randint(0, 256, (8, 513, 513, 3), generator=g, device=dev,
@@ -664,19 +643,15 @@ def serving_phase(model, dev):
     with tempfile.TemporaryDirectory() as tmp:
         # (a) export, load, check
         path = os.path.join(tmp, 'm101_s16_bf16.posenet')
-        t0 = time.perf_counter()
         meta = save_serving_artifact(model, path, decode_cfg=dcfg, batch_sizes=(1, 8),
                                      input_hw=(513, 513), platforms=('cuda',))
-        export_s = time.perf_counter() - t0
         size_mb = os.path.getsize(path) / 2 ** 20
         art = load_serving_artifact(path)
         check(art.device.type == 'cuda', f'artifact loaded on {art.device}')
         pipe = PoseNetPipeline(model, dcfg)
-        t0 = time.perf_counter()
         for b in (1, 8):
             art(frames8[:b])
         torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
         ref = pipe(frames8)
         torch.cuda.synchronize()
         traversal.launches = sepconv.launches = 0
@@ -696,8 +671,7 @@ def serving_phase(model, dev):
               'artifact b1 differs from PoseNetPipeline')
         n_poses = (out.pose_scores > 0).sum(1).tolist()
         print(f'serving (a): export m101 s16 bf16 513x513 batches {meta["batch_sizes"]} '
-              f'platform cuda in {export_s:.2f} s, {size_mb:.2f} MiB; load + first call of '
-              f'both programs {load_s:.2f} s; loaded program bitwise equal to '
+              f'platform cuda, {size_mb:.2f} MiB; loaded program bitwise equal to '
               f'PoseNetPipeline at b8 and b1; K2 launches {k2} and K1 launches {k1} in one '
               f'b8 call; every K2 input a view (permute), no copy, in both programs; '
               f'K1 reads the heads in place in both programs ({k1_inputs[1]}); '
@@ -715,40 +689,33 @@ def serving_phase(model, dev):
         bgr = rng.integers(0, 256, (8, 720, 1280, 3), dtype=np.uint8)
 
         def resize_all(backend):
-            t0 = time.perf_counter()
-            out = np.stack([native_preprocess.resize_rgb(f, (513, 513), backend) for f in bgr])
-            return out, (time.perf_counter() - t0) * 1000 / len(bgr)
+            return np.stack([native_preprocess.resize_rgb(f, (513, 513), backend) for f in bgr])
 
         has_cv2 = importlib.util.find_spec('cv2') is not None
         saved = sys.modules.get('cv2')
         sys.modules['cv2'] = None   # as on a host without cv2: 'auto' takes the library
         try:
-            resize_all('auto')      # the first call builds the library
-            native, native_ms = resize_all('auto')
+            native = resize_all('auto')
         finally:
             if saved is None:
                 del sys.modules['cv2']
             else:
                 sys.modules['cv2'] = saved
-        check(np.array_equal(native, resize_all('native')[0]),
+        check(np.array_equal(native, resize_all('native')),
               "resize_rgb 'auto' without cv2 is not the native library")
         line = (f'serving (c): host resize 720x1280 BGR -> 513x513 RGB by '
-                f'native_preprocess.resize_rgb without cv2 (the native library): '
-                f'{native_ms:.3f} ms a frame (mean of {len(bgr)}, host clock)')
+                f'native_preprocess.resize_rgb without cv2 (the native library)')
         if has_cv2:
-            resize_all('cv2')       # the first call imports cv2
-            via_cv2, cv2_ms = resize_all('cv2')
-            lsb = int(np.abs(via_cv2.astype(int) - native).max())
+            lsb = int(np.abs(resize_all('cv2').astype(int) - native).max())
             check(lsb <= 1, f'native resize {lsb} LSB from cv2')
-            line += f'; cv2 is present here: {cv2_ms:.3f} ms a frame, within {lsb} LSB'
+            line += f'; cv2 is present here: within {lsb} LSB of it'
         else:
             line += '; cv2 is absent here'
         print(line, flush=True)
         serve_and_check(art, 'artifact', native, 'host-resized 720p frame')
         del art
 
-    # (d) served timing: tools/serve_loadgen.py against the live server
-    serving_breakdown(model, dcfg)
+    # (d) tools/serve_loadgen.py against the live server, pipeline_depth 2 and 1
     for depth in (2, 1):
         live = LivePipelineBackend(model, decode_cfg=dcfg, input_hw=(513, 513),
                                    batch_sizes=(1, 8, 32))
@@ -756,101 +723,27 @@ def serving_phase(model, dev):
         server.warmup()
         httpd = make_http_server(server, '127.0.0.1', 0)
         threading.Thread(target=httpd.serve_forever, daemon=True).start()
-        base = f'http://127.0.0.1:{httpd.server_address[1]}'
-        cpu0, kids0 = time.process_time(), resource.getrusage(resource.RUSAGE_CHILDREN)
         try:
             done = subprocess.run(
-                [sys.executable, os.path.join(REPO, 'tools', 'serve_loadgen.py'),
-                 '--base', base, '--clients', '32', '--seconds', '10'],
-                capture_output=True, text=True, timeout=300)
+                [sys.executable, os.path.join(REPO, 'tools', 'serve_loadgen.py'), '--base',
+                 f'http://127.0.0.1:{httpd.server_address[1]}', '--clients', '32',
+                 '--seconds', '3'], capture_output=True, text=True, timeout=300)
         finally:
             httpd.shutdown()
             httpd.server_close()
             server.close()
-        server_cpu = time.process_time() - cpu0
-        kids1 = resource.getrusage(resource.RUSAGE_CHILDREN)
-        loadgen_cpu = (kids1.ru_utime + kids1.ru_stime) - (kids0.ru_utime + kids0.ru_stime)
-        stats = server.stats
         check(done.returncode == 0, f'serve_loadgen failed: {done.stderr[-2000:]}')
         result = json.loads(done.stdout.strip().splitlines()[-1])
         check(result['requests'] > 0 and result['errors'] == 0, f'serve_loadgen: {result}')
-        print(f'serving (d): live m101 s16 bf16 513x513, batches (1, 8, 32), pipeline_depth '
-              f'{depth}, 32 clients, 10 s, raw frames: {result["req_per_s"]} req/s, latency '
-              f'p50 {result["latency_ms"]["p50"]} ms, p99 {result["latency_ms"]["p99"]} ms; '
-              f'batches {result["batches_by_size"]}; server device_ms (dispatch to fetched) '
-              f'{stats["device_ms_total"] / max(1, sum(stats["batches_by_size"].values())):.3f}'
-              f' ms a batch; CPU seconds, server process {server_cpu:.2f} and serve_loadgen '
-              f'{loadgen_cpu:.2f} (its start-up included) (serve_loadgen: '
-              f'{json.dumps(result)})', flush=True)
-
-
-def serving_breakdown(model, dcfg, batch=32, reps=5):
-    """Host clock of one b32 chunk through the server's own steps, called
-    one at a time in this thread while its worker idles: `_dispatch_chunk`
-    (pinned staging, then the backend call that queues the launches, timed
-    apart), `_finish_chunk` (the one fetch wait, then the reply dicts), and
-    json.dumps of each reply as the HTTP handler sends it."""
-    live = LivePipelineBackend(model, decode_cfg=dcfg, input_hw=(513, 513),
-                               batch_sizes=(batch,))
-    server = PoseServer(live)
-    backend_s = []
-
-    def timed_backend(frames):
-        t0 = time.perf_counter()
-        out = live(frames)
-        backend_s.append(time.perf_counter() - t0)
-        return out
-
-    server.artifact = timed_backend
-    frames = np.random.default_rng(32).integers(0, 256, (batch, 513, 513, 3), dtype=np.uint8)
-    steps = {'_dispatch_chunk': [], '_finish_chunk': [], 'json.dumps': []}
-    try:
-        for rep in range(reps + 1):
-            reqs = [_Request(f, (1.0, 1.0), 0.0, 0.0) for f in frames]
-            t = [time.perf_counter()]
-            inflight = server._dispatch_chunk(reqs, batch)
-            t.append(time.perf_counter())
-            check(inflight is not None, f'the breakdown chunk failed: {reqs[0].error}')
-            server._finish_chunk(inflight)
-            t.append(time.perf_counter())
-            for r in reqs:
-                json.dumps({'poses': r.result, 'source_hw': [513, 513]})
-            t.append(time.perf_counter())
-            check(all(r.error is None for r in reqs), f'the breakdown chunk: {reqs[0].error}')
-            if rep:   # the first repetition warms up
-                for times, a, b in zip(steps.values(), t, t[1:]):
-                    times.append((b - a) * 1000)
-        # The device's busy time in one chunk: the union of its kernel and
-        # copy intervals under torch.profiler.
-        reqs = [_Request(f, (1.0, 1.0), 0.0, 0.0) for f in frames]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            server._finish_chunk(server._dispatch_chunk(reqs, batch))
-        busy_us, end = 0.0, float('-inf')
-        # `record_function` ranges (the pipeline's spans among them) also
-        # appear on the device, as annotations over the kernels they hold.
-        for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                                  if e.device_type == DeviceType.CUDA
-                                  and not e.is_user_annotation):
-            if stop > end:
-                busy_us += stop - max(start, end)
-                end = stop
-    finally:
-        server.close()
-    ms = {k: sum(v) / len(v) for k, v in steps.items()}
-    call_ms = sum(backend_s[1:reps + 1]) * 1000 / reps
-    print(f'serving breakdown, live m101 s16 bf16 b{batch}, the server\'s steps, host clock, '
-          f'mean of {reps}: _dispatch_chunk {ms["_dispatch_chunk"]:.3f} ms (staging '
-          f'{ms["_dispatch_chunk"] - call_ms:.3f}, backend call {call_ms:.3f}), _finish_chunk '
-          f'(fetch wait + reply dicts) {ms["_finish_chunk"]:.3f} ms, json.dumps '
-          f'{ms["json.dumps"]:.3f} ms; total {sum(ms.values()):.3f} ms = '
-          f'{sum(ms.values()) / batch:.3f} ms a request; device busy {busy_us / 1000:.3f} ms '
-          f'a chunk (torch.profiler, union of kernels and copies)', flush=True)
+        print(f'serving (d): tools/serve_loadgen.py, 32 clients for 3 s against the live '
+              f'server (batches (1, 8, 32), pipeline_depth {depth}): {result["requests"]} '
+              f'replies, {result["errors"]} errors; batches {result["batches_by_size"]}',
+              flush=True)
 
 
 def device_phase():
     """Phase 1: the card's name and power limit, versions; TF32 off.
-    Returns (kind, device, the `name, power.limit` line), or None without
-    CUDA."""
+    Returns (kind, device), or None without CUDA."""
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on an NVIDIA GPU',
               file=sys.stderr)
@@ -867,7 +760,7 @@ def device_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    return kind, dev, smi
+    return kind, dev
 
 
 def ptxas_report(log: str, kernel: str):
@@ -893,10 +786,10 @@ def build_phase():
     libs = _build.build_all(['traversal', 'sepconv', 'stem'])
     for name in libs:
         _build.load(name)
-    print(f'build: K1 {K1_SOURCE} -> {os.path.relpath(libs["traversal"], REPO)}, '
-          f'K2 {K2_SOURCE} -> {os.path.relpath(libs["sepconv"], REPO)}, '
-          f'stem {STEM_SOURCE} -> {os.path.relpath(libs["stem"], REPO)} in '
-          f'{time.perf_counter() - t0:.2f} s (nvcc {" ".join(_build.NVCC_FLAGS)})',
+    print('build: ' + ', '.join(f'{k} {KERNELS[k][1]} -> {os.path.relpath(libs[lib], REPO)}'
+                                for k, lib in (('K1', 'traversal'), ('K2', 'sepconv'),
+                                               ('stem', 'stem')))
+          + f' in {time.perf_counter() - t0:.2f} s (nvcc {" ".join(_build.NVCC_FLAGS)})',
           flush=True)
     regs, frame, spill_st, spill_ld, lines = ptxas_report(_build.build_log('stem'),
                                                           'stem_conv_relu_maxpool_kernel')
@@ -953,13 +846,10 @@ def k2_checks(dev) -> float:
     and dilated, the ragged one-block tiles, and the pointwise alone
     against torch.matmul; returns the max abs difference."""
     k2_err = 0.0
-    shapes = [(2, h, w, c_in, c_out, 1)
-              for h, w, c_in, c_out, _ in K2_M101_SHAPES + K2_OTHER_SHAPES]
+    shapes = [(2, h, w, c_in, c_out, 1) for h, w, c_in, c_out in K2_M101_SHAPES + K2_OTHER_SHAPES]
     shapes += [(1, 9, 9, 512, 512, 1)]
-    shapes += [(2, h, w, c_in, c_out, r)
-               for _, _, h, w, c_in, c_out, r, _ in K2_DILATED_CELL_SHAPES]
     shapes += [(1 if h < 33 else 2, h, w, c_in, c_out, r)
-               for h, w, c_in, c_out, r in K2_OTHER_DILATED]
+               for h, w, c_in, c_out, r in K2_M101_DILATED + K2_OTHER_DILATED]
     for i, (b, h, w, c_in, c_out, rate) in enumerate(shapes):
         ok, err, equal = k2_against_plain(k2_inputs(b, h, w, c_in, c_out, i, dev), rate)
         k2_err = max(k2_err, err)
@@ -1012,78 +902,32 @@ def k2_trunk_launches(dev) -> int:
     return launches[16]
 
 
-def k2_timing(dev, batch=128):
-    """Phase 7, K2: each m101 s16 layer at batch 128, K2 against its plain
-    version and the cuDNN conv pair the trunk ran before, in turns, beside
-    its bound, after holding K2 against its plain version on the same
-    inputs. Returns the sums over one forward's 9 rate-1 layers, what
-    bounds the most of the bound's sum, the max abs difference, and the
-    dilated layers' sums by cell (`k2_dilated_timing`)."""
-    k2_ms = k2_plain_ms = pair_ms = err_max = 0.0
-    bound_by_ms = {'bytes': 0.0, 'operations': 0.0}
-    for i, (h, w, c_in, c_out, count) in enumerate(K2_M101_SHAPES):
-        args = k2_inputs(batch, h, w, c_in, c_out, 100 + i, dev)
-        x, taps, dw_b, pw_w, pw_b = args
-        x_nchw = x.permute(0, 3, 1, 2)
-        dw_oihw = taps.t().reshape(c_in, 1, 3, 3).contiguous()
-        pw_oihw = pw_w.reshape(c_out, c_in, 1, 1)
-        ok, err, equal = k2_against_plain(args)
-        err_max = max(err_max, err)
-        check(ok, f'K2 differs from its plain version at B={batch} {h}x{w} {c_in}->{c_out} '
-                  f'beyond one bf16 ulp (max {err})')
-        print(f'K2 vs plain: B={batch} {h}x{w} {c_in}->{c_out}: within one bf16 ulp '
-              f'(or 2^-16), max abs {err:.3g}, share bitwise equal {equal:.6f}', flush=True)
-
-        def pair():
-            y = mobilenet_v1._conv_relu6(x_nchw, dw_oihw, dw_b, groups=c_in)
-            return mobilenet_v1._conv_relu6(y, pw_oihw, pw_b)
-
-        runs = {}
-        for name, fn, iters in (('plain', sepconv.sepconv_reference, 3),
-                                ('kernel', sepconv.sepconv, 20),
-                                ('cudnn', None, 20), ('cudnn', None, 20),
-                                ('kernel', sepconv.sepconv, 20),
-                                ('plain', sepconv.sepconv_reference, 3)):
-            call = pair if fn is None else (lambda fn=fn: fn(*args))
-            runs.setdefault(name, []).append(cuda_ms(call, iters))
-        ms = {k: sum(v) / len(v) for k, v in runs.items()}
-        bound, bound_by = k2_bound_ms(batch, h, w, c_in, c_out)
-        k2_ms += count * ms['kernel']
-        k2_plain_ms += count * ms['plain']
-        pair_ms += count * ms['cudnn']
-        bound_by_ms[bound_by] += count * bound
-        print(f'K2 layer b{batch} {h}x{w} {c_in}->{c_out} (x{count} a forward): kernel '
-              f'{ms["kernel"]:.4f} ms, cuDNN pair {ms["cudnn"]:.4f} ms, bound {bound:.4f} ms '
-              f'({bound_by}), kernel / bound {ms["kernel"] / bound:.1f}x, plain '
-              f'{ms["plain"]:.4f} ms (runs plain, kernel, cudnn, cudnn, kernel, plain: '
-              f'{runs})', flush=True)
-        del args, x, x_nchw
-    bound_sum = sum(bound_by_ms.values())
-    print(f'K2 over the 9 rate-1 layers of one m101 s16 b{batch} forward: kernel '
-          f'{k2_ms:.4f} ms, cuDNN pair {pair_ms:.4f} ms, bound {bound_sum:.4f} ms, kernel / '
-          f'bound {k2_ms / bound_sum:.1f}x, plain {k2_plain_ms:.4f} ms', flush=True)
-    dilated, dilated_err = k2_dilated_timing(dev)
-    return (k2_ms, k2_plain_ms, pair_ms, bound_sum, max(bound_by_ms, key=bound_by_ms.get),
-            max(err_max, dilated_err), dilated)
-
-
-def k2_dilated_timing(dev):
-    """Phase 7, K2's dilated layers: each dilated layer of the benchmark's
-    cells at the cell's batch, held to its plain version, then timed in
-    turns against it and against the dilated cuDNN conv pair (with its
-    bias and ReLU6 passes) that the trunk ran there before, beside its
-    bound. Returns ({cell: sums over one forward's dilated layers}, the
-    max abs difference)."""
-    sums, err_max = {}, 0.0
-    for i, (cell, b, h, w, c_in, c_out, rate, count) in enumerate(K2_DILATED_CELL_SHAPES):
-        args = k2_inputs(b, h, w, c_in, c_out, 200 + i, dev)
+def k2_timing(dev, cell, launches) -> dict:
+    """Phase 7, K2 in one cell: each of its launches (`cell_kernel_shapes`)
+    held to its plain version at the cell's batch, then timed by CUDA
+    events in turns (plain, kernel, cuDNN, cuDNN, kernel, plain) against
+    it and against the cuDNN depthwise + pointwise pair, with its bias and
+    ReLU6 passes, that the trunk ran before (dilated as the layer is),
+    beside its bound (`yardstick.k2_bound_ms`). Layers of one shape
+    are timed once, and that time counts once for each of them. Returns the sums over the
+    launches (`dilated_ms`: the kernel's over the dilated layers) and the
+    max abs difference."""
+    sums = dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms', 'dilated_ms'), 0.0)
+    err_max = 0.0
+    layers_of = {}
+    for s in launches:
+        shape = tuple(s[k] for k in ('batch', 'h', 'w', 'c_in', 'c_out', 'rate'))
+        layers_of.setdefault(shape, []).append(s['layer'])
+    for (b, h, w, c_in, c_out, rate), layers in layers_of.items():
+        args = k2_inputs(b, h, w, c_in, c_out, 100 + layers[0], dev)
         x, taps, dw_b, pw_w, pw_b = args
         x_nchw = x.permute(0, 3, 1, 2)
         dw_oihw = taps.t().reshape(c_in, 1, 3, 3).contiguous()
         pw_oihw = pw_w.reshape(c_out, c_in, 1, 1)
         ok, err, equal = k2_against_plain(args, rate)
         err_max = max(err_max, err)
-        what = f'B={b} {h}x{w} {c_in}->{c_out} rate {rate}'
+        what = (f'{cell} layer{"s" * (len(layers) > 1)} {", ".join(map(str, layers))}, '
+                f'B={b} {h}x{w} {c_in}->{c_out} rate {rate}')
         check(ok, f'K2 differs from its plain version at {what} beyond one bf16 ulp (max {err})')
 
         def pair():
@@ -1099,45 +943,48 @@ def k2_dilated_timing(dev):
             call = pair if fn is None else (lambda fn=fn: fn(*args, rate))
             runs.setdefault(name, []).append(cuda_ms(call, iters))
         ms = {k: sum(v) / len(v) for k, v in runs.items()}
-        bound, bound_by = k2_bound_ms(b, h, w, c_in, c_out)
-        cell_sums = sums.setdefault(cell, {'layers': 0, 'ms': 0.0, 'library_ms': 0.0,
-                                           'bound_ms': 0.0, 'plain_ms': 0.0})
-        for key, v in (('layers', 1), ('ms', ms['kernel']), ('library_ms', ms['cudnn']),
-                       ('bound_ms', bound), ('plain_ms', ms['plain'])):
-            cell_sums[key] += count * v
-        print(f'K2 dilated layer {cell} {what} (x{count} a forward): kernel {ms["kernel"]:.4f} '
-              f'ms, dilated cuDNN pair {ms["cudnn"]:.4f} ms, bound {bound:.4f} ms ({bound_by}), '
-              f'kernel / bound {ms["kernel"] / bound:.1f}x, plain {ms["plain"]:.4f} ms; within '
-              f'one bf16 ulp of plain, max abs {err:.3g}, share bitwise equal {equal:.6f} (runs '
-              f'plain, kernel, cudnn, cudnn, kernel, plain: {runs})', flush=True)
+        bound = k2_bound_ms(b, h, w, c_in, c_out)
+        for key, v in (('ms', ms['kernel']), ('plain_ms', ms['plain']),
+                       ('library_ms', ms['cudnn']), ('bound_ms', bound),
+                       ('dilated_ms', ms['kernel'] if rate > 1 else 0.0)):
+            sums[key] += len(layers) * v
+        print(f'K2 {what}: kernel {ms["kernel"]:.4f} ms a layer, cuDNN pair {ms["cudnn"]:.4f} ms, '
+              f'bound {bound:.4f} ms, kernel / bound {ms["kernel"] / bound:.1f}x, plain '
+              f'{ms["plain"]:.4f} ms; within one bf16 ulp of plain, max abs {err:.3g}, share '
+              f'bitwise equal {equal:.6f} (runs plain, kernel, cudnn, cudnn, kernel, plain: '
+              f'{runs})', flush=True)
         del args, x, x_nchw
-    for cell, v in sums.items():
-        print(f'K2 over the {v["layers"]} dilated layers of one {cell} forward: kernel '
-              f'{v["ms"]:.4f} ms, dilated cuDNN pair {v["library_ms"]:.4f} ms, bound '
-              f'{v["bound_ms"]:.4f} ms, kernel / bound {v["ms"] / v["bound_ms"]:.1f}x, plain '
-              f'{v["plain_ms"]:.4f} ms', flush=True)
-    return sums, err_max
+        torch.cuda.empty_cache()
+    print(f'K2 over the {len(launches)} launches of one {cell} forward: kernel '
+          f'{sums["ms"]:.4f} ms (the dilated layers {sums["dilated_ms"]:.4f}), cuDNN pair '
+          f'{sums["library_ms"]:.4f} ms, bound {sums["bound_ms"]:.4f} ms, kernel / bound '
+          f'{sums["ms"] / sums["bound_ms"]:.1f}x, plain {sums["plain_ms"]:.4f} ms', flush=True)
+    return dict(sums, launches=len(launches), err=err_max)
 
 
-def k1_timing(dev, peaked, cfg) -> dict:
-    """Phase 7, K1: on the peaked b128 heads (K = 128, 33x33), held bitwise
-    to its plain version, then timed in turns against it (plain, kernel,
-    kernel, plain): per call by CUDA events, host dispatch included, and
-    by CUDA graph replay, the device alone; beside
-    its bytes bound (the hops that fetch in this run's walk) and its
-    latency floor: the graph time of the first candidate alone (B = K = 1),
-    and of that candidate with its score -1, which fetches nothing."""
-    batch = peaked[0].shape[0]
-    args = k1_args(peaked, 16, cfg)
-    equal, err, _, _ = k1_against_plain(args, 33, 33, 16)
-    check(equal, f'K1 differs from its plain version at B={batch} (max {err})')
-    fetches = k1_fetches(args, 33, 33, 16)
+def k1_timing(dev, cell, launches) -> dict:
+    """Phase 7, K1 in one cell: its launch (`cell_kernel_shapes`) on peaked
+    heads at the cell's batch and grid (`peaked_heads`), the candidates as
+    the cell's decode config picks them, held bitwise to its plain
+    version, then timed in turns against it (plain, call, kernel, kernel,
+    call, plain): per call by CUDA events, host dispatch included, and by
+    CUDA graph replay, the device alone; beside its bytes bound (the hops
+    that fetch in this run's walk) and its latency floor: the graph time
+    of the first candidate alone (B = K = 1), and of that candidate with
+    its score -1, which fetches nothing."""
+    (s,) = launches
+    b, h, w, stride = s['batch'], s['h'], s['w'], s['stride']
+    args = k1_args(peaked_heads(b, (h, w), 8, dev), stride, s['decode'])
+    k = args[0].shape[1]
+    equal, err, _, _ = k1_against_plain(args, h, w, stride)
+    check(equal, f'K1 differs from its plain version in {cell}, B={b} (max {err})')
+    fetches = k1_fetches(args, h, w, stride)
 
     def kernel(*a):
-        return lambda: traversal.traverse_all_candidates(*a, 33, 33, 16)
+        return lambda: traversal.traverse_all_candidates(*a, h, w, stride)
 
     def plain():
-        return traversal.traverse_all_candidates_reference(*args, 33, 33, 16)
+        return traversal.traverse_all_candidates_reference(*args, h, w, stride)
 
     runs = {}
     for name, timer in (('plain', lambda: cuda_ms(plain, 20)),
@@ -1148,43 +995,21 @@ def k1_timing(dev, peaked, cfg) -> dict:
                         ('plain', lambda: cuda_ms(plain, 20))):
         runs.setdefault(name, []).append(timer())
     ms = {name: sum(v) / len(v) for name, v in runs.items()}
-    bound = k1_bound_ms(batch, args[0].shape[1], fetches)
+    bound = k1_bound_ms(b, k, fetches)
     one = tuple(a[:1, :1] for a in args[:3]) + tuple(t[:1] for t in args[3:])
-    one_fetches = k1_fetches(one, 33, 33, 16)
+    one_fetches = k1_fetches(one, h, w, stride)
     floor = graph_ms(kernel(*one))
     dead = graph_ms(kernel(torch.full_like(one[0], -1.0), *one[1:]))
-    print(f'K1 at B={batch} K={args[0].shape[1]} 33x33: kernel {ms["kernel"]:.4f} ms a launch '
+    print(f'K1 {cell}, B={b} K={k} {h}x{w} s{stride}: kernel {ms["kernel"]:.4f} ms a launch '
           f'(CUDA graph of 20 launches, the device alone), {ms["call"]:.4f} ms a call (CUDA '
           f'events, host dispatch included), plain {ms["plain"]:.4f} ms, bound {bound:.4f} ms '
           f'(bytes; {fetches} fetching hops of {args[0].numel() * 32}), kernel / bound '
           f'{ms["kernel"] / bound:.1f}x; latency floor: one candidate ({one_fetches} fetching '
           f'hops) {floor:.4f} ms a launch, one dead candidate (no fetch) {dead:.4f} ms (runs '
           f'plain, call, kernel, kernel, call, plain: {runs})', flush=True)
-    return {'ms': ms['kernel'], 'call_ms': ms['call'], 'plain_ms': ms['plain'],
-            'bound_ms': bound, 'floor_ms': floor, 'dead_ms': dead, 'err': err}
-
-
-def k1_entry(launches, err, timing) -> dict:
-    """K1's entry of the kernels line: `ms` by CUDA graph replay (the
-    device alone); `call_ms` per call by CUDA events, host dispatch
-    included, as `plain_ms` is timed; the latency floor beside them. No
-    PyTorch call computes the walk, so `library_ms` is null."""
-    return {'name': 'traverse_all_candidates', 'route': 'cuda', 'source': K1_SOURCE,
-            'replaces': K1_REPLACES, 'launches': launches,
-            'max_abs_err': max(err, timing['err']), 'ms': timing['ms'],
-            'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
-            'bound_by': 'bytes', 'library_ms': None, 'call_ms': timing['call_ms'],
-            'floor_ms': timing['floor_ms']}
-
-
-def k2_entry(launches, err, timing) -> dict:
-    """K2's entry of the kernels line; `library_ms` is the cuDNN pair's."""
-    k2_ms, plain_ms, pair_ms, bound, bound_by, timing_err, dilated = timing
-    return {'name': 'sepconv', 'route': 'cuda', 'source': K2_SOURCE,
-            'replaces': K2_REPLACES, 'launches': launches,
-            'max_abs_err': max(err, timing_err),
-            'ms': k2_ms, 'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': bound_by, 'library_ms': pair_ms, 'dilated': dilated}
+    return {'launches': 1, 'ms': ms['kernel'], 'call_ms': ms['call'], 'plain_ms': ms['plain'],
+            'library_ms': None, 'bound_ms': bound, 'floor_ms': floor, 'dead_ms': dead,
+            'err': err}
 
 
 def stem_args(b, h, w, seed, dev):
@@ -1218,7 +1043,8 @@ def stem_against_plain(args):
 def stem_bound_ms(b, h, w):
     """(the least time of the fused stem, what bounds it): the frames read
     once and the pooled features written once at HBM speed, against the
-    conv's products on the bf16 tensor cores."""
+    conv's products on the bf16 tensor cores, at the yardstick's peaks
+    (`yardstick_r50.conv_bound_ms` bounds the unfused conv instead)."""
     hc, wc = (h - 1) // 2 + 1, (w - 1) // 2 + 1
     nbytes = 2 * b * (h * w * 3 + stem.output_size(h) * stem.output_size(w) * 64)
     flops = 2.0 * b * hc * wc * 64 * 147
@@ -1304,16 +1130,19 @@ def stem_main_path(dev) -> int:
     return launches
 
 
-def stem_timing(dev, batch=256, h=513, w=513) -> dict:
-    """The stem at the cell's b256 513x513, held to its plain version, then
-    timed in turns (plain, kernel, library, library, kernel, plain) by CUDA
-    events against its plain version and against the library calls the
-    trunk ran before (cuDNN's fused conv-bias-ReLU and F.max_pool2d),
-    beside its bound."""
-    args = stem_args(batch, h, w, 400, dev)
+def stem_timing(dev, cell, launches) -> dict:
+    """Phase 7, the stem in one cell: its launch (`cell_kernel_shapes`) held
+    to its plain version, then timed in turns (plain, kernel, library,
+    library, kernel, plain) by CUDA events against it and against the
+    library calls the trunk ran before (cuDNN's fused conv-bias-ReLU and
+    F.max_pool2d), beside its bound (`stem_bound_ms`)."""
+    (s,) = launches
+    b, h, w = s['batch'], s['h'], s['w']
+    args = stem_args(b, h, w, 400, dev)
     x, wt, bias = args
     ok, err, equal = stem_against_plain(args)
-    check(ok, f'stem kernel differs from its plain version at B={batch} {h}x{w} (max {err})')
+    check(ok, f'stem kernel differs from its plain version in {cell}, B={b} {h}x{w} '
+              f'(max {err})')
     x_nchw = x.permute(0, 3, 1, 2)
 
     def library():
@@ -1330,31 +1159,50 @@ def stem_timing(dev, batch=256, h=513, w=513) -> dict:
         torch.cuda.empty_cache()
     ms = {k: sum(v) / len(v) for k, v in runs.items()}
     lib_equal = float((library() == stem.stem(*args)).float().mean())
-    bound, bound_by = stem_bound_ms(batch, h, w)
-    print(f'stem b{batch} {h}x{w}: kernel {ms["kernel"]:.4f} ms, library (cuDNN conv-bias-ReLU '
-          f'+ max pool) {ms["library"]:.4f} ms, bound {bound:.4f} ms ({bound_by}), kernel / '
-          f'bound {ms["kernel"] / bound:.1f}x, plain {ms["plain"]:.4f} ms; vs plain max abs '
-          f'{err:.3g}, share bitwise equal {equal:.6f}; share of the library\'s values bitwise '
-          f'equal to the kernel\'s {lib_equal:.6f} (runs plain, kernel, library, library, kernel, plain: {runs})', flush=True)
+    bound, bound_by = stem_bound_ms(b, h, w)
+    print(f'stem {cell}, B={b} {h}x{w}: kernel {ms["kernel"]:.4f} ms, library (cuDNN '
+          f'conv-bias-ReLU + max pool) {ms["library"]:.4f} ms, bound {bound:.4f} ms '
+          f'({bound_by}), kernel / bound {ms["kernel"] / bound:.1f}x, plain {ms["plain"]:.4f} '
+          f'ms; vs plain max abs {err:.3g}, share bitwise equal {equal:.6f}; share of the '
+          f'library\'s values bitwise equal to the kernel\'s {lib_equal:.6f} (runs plain, '
+          f'kernel, library, library, kernel, plain: {runs})', flush=True)
     del args, x, x_nchw
     torch.cuda.empty_cache()
-    return {'ms': ms['kernel'], 'plain_ms': ms['plain'], 'library_ms': ms['library'],
-            'bound_ms': bound, 'bound_by': bound_by, 'err': err}
+    return {'launches': 1, 'ms': ms['kernel'], 'plain_ms': ms['plain'],
+            'library_ms': ms['library'], 'bound_ms': bound, 'bound_by': bound_by, 'err': err}
 
 
-def stem_entry(launches, by_path, err, timing) -> dict:
-    """The stem's entry of the kernels line: `launches` from phase 5's
-    ResNet50 call, the forwards of the checks under `launches_by_path`;
-    `library_ms` is cuDNN's fused conv-bias-ReLU plus F.max_pool2d, which
-    the port no longer calls."""
-    return {'name': 'stem_conv_relu_maxpool', 'route': 'cuda', 'source': STEM_SOURCE,
-            'replaces': None, 'launches': launches,
-            'launches_by_path': {'main path (phase 5, ResNet50 s16 bf16 b8 513x513)': launches,
-                                 **by_path},
-            'max_abs_err': max(err, timing['err']),
-            'ms': timing['ms'], 'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
-            'bound_by': timing['bound_by'], 'library_ms': timing['library_ms'],
-            'shape': 'b256 513x513'}
+# Phase 7's timer of each kernel: (device, cell, its launches there) -> sums.
+TIMERS = {'K1': k1_timing, 'K2': k2_timing, 'stem': stem_timing}
+
+
+def cell_timing(dev, kernel) -> dict:
+    """Phase 7 for `kernel` ('K1', 'K2' or 'stem'): its launches in each
+    cell of BENCHMARK.json that runs it, timed alone (`TIMERS`), once for
+    cells whose launches are the same. Returns {cell: the sums over the
+    cell's launches}."""
+    out, timed_in = {}, {}
+    for cell in benchmark_cells():
+        launches = [s for s in cell_kernel_shapes(cell) if s['kernel'] == kernel]
+        if not launches:
+            continue
+        same = repr([{k: v for k, v in s.items() if k != 'layer'} for s in launches])
+        if same in timed_in:
+            out[cell] = dict(out[timed_in[same]], timed_in=timed_in[same])
+            print(f'{kernel} {cell}: the same launches as {timed_in[same]}, timed there',
+                  flush=True)
+        else:
+            out[cell], timed_in[same] = TIMERS[kernel](dev, cell, launches), cell
+    return out
+
+
+def entry(kernel, **fields) -> dict:
+    """`kernel`'s entry of the kernels line: its name, source and the TPU
+    kernel it replaces, then `fields`: `launches` (and where they were
+    counted: `launches_from`, `launches_by_path`), `max_abs_err` from its
+    plain version, and phase 7's sums by cell (`cells`)."""
+    name, source, replaces = KERNELS[kernel]
+    return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces, **fields}
 
 
 class FakeCapture:
@@ -1375,22 +1223,14 @@ class FakeCapture:
 def run_app(module, argv):
     """An app's `main(argv)` in-process, its standard output captured, with
     the K1 count set to 0 just before and read just after; returns (its
-    output, K1 launches, host seconds)."""
+    output, K1 launches)."""
     out = io.StringIO()
     torch.cuda.synchronize()
     traversal.launches = 0
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         module.main(argv)
     torch.cuda.synchronize()
-    return out.getvalue(), traversal.launches, time.perf_counter() - t0
-
-
-def printed_fps(out: str) -> float:
-    """The FPS an app printed: 'Average FPS: x', or video_demo's 'x FPS'."""
-    found = re.findall(r'Average FPS:\s*([0-9.eE+-]+)', out) or re.findall(r'([0-9.]+) FPS', out)
-    check(len(found) == 1, f'no FPS line in the app\'s output: {out[-500:]}')
-    return float(found[0])
+    return out.getvalue(), traversal.launches
 
 
 def recorded_k1_args(fn, *args):
@@ -1411,8 +1251,9 @@ def single_pose_phase(dev):
     on the CPU (K1's plain version), bitwise, with one K1 launch a call, on
     synthesized heads at 33x33 s16 and 91x161 s8, on the fixture m50 s16's
     heads of a synthesized photo, and on a heatmap with nothing above the
-    threshold; then K1 at this B = K = 1 shape, held to its plain version
-    and timed. Returns (K1's timing dict, launches over the checked calls)."""
+    threshold; then K1 at this B = K = 1 shape, held to its plain version.
+    Returns (K1's max abs difference there, launches over the checked
+    calls)."""
     rng = np.random.RandomState(8)
     cases = [(f'synth {h}x{w} s{s}', [a[0] for a in synth_heads(rng, 1, h, w)], s)
              for h, w, s in ((33, 33, 16), (91, 161, 8))]
@@ -1448,46 +1289,13 @@ def single_pose_phase(dev):
 
     # K1 at the single pose's shape: the wrapper's arguments as the path
     # makes them, recorded on the 33x33 case.
-    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in cases[0][1]]
-    card = [t.to(dev) for t in host]
+    card = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in cases[0][1]]
     _, args = recorded_k1_args(decode_single_pose, *card, 16)
     equal, err, _, _ = k1_against_plain(args, 33, 33, 16)
     check(equal, f'K1 at B = K = 1 differs from its plain version (max {err})')
-    fetches = k1_fetches(args, 33, 33, 16)
-
-    def kernel():
-        return traversal.traverse_all_candidates(*args, 33, 33, 16)
-
-    def plain():
-        return traversal.traverse_all_candidates_reference(*args, 33, 33, 16)
-
-    def whole():
-        return decode_single_pose(*card, 16)
-
-    runs = {}
-    for name, timer in (('plain', lambda: cuda_ms(plain, 20)),
-                        ('call', lambda: cuda_ms(kernel, 50)),
-                        ('kernel', lambda: graph_ms(kernel)),
-                        ('decode', lambda: cuda_ms(whole, 20)),
-                        ('decode', lambda: cuda_ms(whole, 20)),
-                        ('kernel', lambda: graph_ms(kernel)),
-                        ('call', lambda: cuda_ms(kernel, 50)),
-                        ('plain', lambda: cuda_ms(plain, 20))):
-        runs.setdefault(name, []).append(timer())
-    ms = {name: sum(v) / len(v) for name, v in runs.items()}
-    t0 = time.perf_counter()
-    for _ in range(20):
-        decode_single_pose(*host, 16)
-    cpu_ms = (time.perf_counter() - t0) * 1000 / 20
-    bound = k1_bound_ms(1, 1, fetches)
-    print(f'single pose 33x33 s16: decode_single_pose {ms["decode"]:.4f} ms a call on the card '
-          f'(CUDA events, host dispatch included), {cpu_ms:.4f} ms on the CPU (host clock); '
-          f'its K1 launch (B = K = 1, {fetches} fetching hops): {ms["kernel"]:.4f} ms (CUDA '
-          f'graph, the device alone), {ms["call"]:.4f} ms a call, plain {ms["plain"]:.4f} ms, '
-          f'bound {bound:.3g} ms (bytes), bitwise equal (runs plain, call, kernel, decode, '
-          f'decode, kernel, call, plain: {runs})', flush=True)
-    return ({'ms': ms['kernel'], 'call_ms': ms['call'], 'plain_ms': ms['plain'],
-             'bound_ms': bound, 'floor_ms': ms['kernel'], 'err': err}, launches)
+    print('single pose 33x33 s16: K1 on its recorded arguments (B = K = 1) bitwise equal to '
+          'its plain version', flush=True)
+    return err, launches
 
 
 def per_frame_decode(dev, frame):
@@ -1518,60 +1326,7 @@ def per_frame_decode(dev, frame):
               f'{filled} keypoints filled', flush=True)
 
 
-def webcam_steps(bgr, smi, n=24):
-    """Where webcam_demo's time goes, from its own loop: its `main` on a
-    stand-in capture of n warm 720x1280 frames (-> 513x913), with
-    `profiling.span` stages around the helpers it calls: `read_cap` (the read,
-    the host resize and normalize), the model's call (the upload and the
-    forward, the device synchronised after it so that the stage holds the
-    forward's device time), `decode_multiple_poses` (the decode and the
-    read-back) and `draw_skel_and_kp`."""
-    import cv2
-
-    import posenet_tpu_torch as posenet
-    from posenet_tpu_torch.apps import webcam_demo
-
-    def timed(name, fn, sync=False):
-        def call(*a, **k):
-            with profiling.span(name):
-                out = fn(*a, **k)
-                if sync:
-                    torch.cuda.synchronize()
-            return out
-        return call
-
-    def load_timed(*a, **k):
-        model = load(*a, **k)
-        model.forward = timed('upload + forward', model.forward, sync=True)
-        return model
-
-    load = posenet.load_model
-    helpers = {'load_model': load_timed,
-               'read_cap': timed('read + resize', posenet.read_cap),
-               'decode_multiple_poses': timed('decode + read', posenet.decode_multiple_poses),
-               'draw_skel_and_kp': timed('draw', posenet.draw_skel_and_kp)}
-    saved = {name: getattr(posenet, name) for name in helpers}
-    capture = cv2.VideoCapture
-    cv2.VideoCapture = lambda _id: FakeCapture([bgr[i % len(bgr)].copy() for i in range(n)])
-    try:
-        for name, fn in helpers.items():
-            setattr(posenet, name, fn)
-        with profiling.recording():
-            out, launches, _ = run_app(webcam_demo, ['--no_display', '--allow_random_init'])
-    finally:
-        cv2.VideoCapture = capture
-        for name, fn in saved.items():
-            setattr(posenet, name, fn)
-    check(launches == n, f'webcam_demo (timed) launched K1 {launches} times for {n} frames')
-    report = profiling.span_report()
-    total = sum(r['total_ms'] for r in report.values()) / n
-    print(f'apps: webcam_demo\'s own loop in spans, m101 s16 f32, {n} warm frames '
-          f'720x1280 -> 513x913 ({smi}): {total:.3f} ms a frame in its helpers, '
-          f'{printed_fps(out):.2f} FPS printed (with the sync after each forward); '
-          f'K1 launches {launches}\n{profiling.span_table(report)}', flush=True)
-
-
-def apps_phase(dev, smi) -> dict:
+def apps_phase(dev) -> dict:
     """Phase 8 (2, 3): the apps, where cv2 imports. Returns K1's launches by
     app."""
     if importlib.util.find_spec('cv2') is None:
@@ -1595,62 +1350,53 @@ def apps_phase(dev, smi) -> dict:
             # The first run at a shape pays cuDNN's start-up there; the
             # second, in the same process, is what a user sees after it.
             for when in ('cold', 'warm'):
-                out, n, secs = run_app(image_demo, ['--image_dir', 'images', '--output_dir',
-                                                    'overlays', '--allow_random_init'])
+                out, n = run_app(image_demo, ['--image_dir', 'images', '--output_dir',
+                                              'overlays', '--allow_random_init'])
                 shapes = [cv2.imread(os.path.join('overlays', f)).shape
                           for f in sorted(os.listdir('overlays'))]
                 check(shapes == [(720, 1280, 3)] * 4, f'image_demo overlays {shapes}')
                 check(n == 4, f'image_demo launched K1 {n} times for 4 images')
                 launches[f'image_demo {when}'] = n
                 print(f'apps: image_demo {when}, m101 s16 f32, 4 images 720x1280 -> 721x1281: '
-                      f'{printed_fps(out):.2f} FPS (its Average FPS line; {smi}); 4 overlays '
-                      f'at 720x1280; K1 launches {n}; {out.count("Pose #")} poses printed; '
-                      f'{secs:.2f} s in main', flush=True)
+                      f'4 overlays at 720x1280; K1 launches {n}; {out.count("Pose #")} poses '
+                      f'printed', flush=True)
 
             for extra, label in (([], 'per-frame'), (['--profile', 'trace_frame'],
                                                      'per-frame --profile')):
-                out, n, secs = run_app(benchmark, ['--image_dir', 'images', '--num_images',
-                                                   '20', '--allow_random_init', *extra])
+                out, n = run_app(benchmark, ['--image_dir', 'images', '--num_images', '20',
+                                             '--allow_random_init', *extra])
                 check(n == 20, f'benchmark {label} launched K1 {n} times for 20 frames')
                 launches[f'benchmark {label}'] = n
-                report = out.split('Average FPS:', 1)[1].split('\n', 1)[1].rstrip()
-                print(f'apps: benchmark {label}, m101 s16 f32, 20 frames at 721x1281: '
-                      f'{printed_fps(out):.2f} FPS ({smi}); K1 launches {n}'
-                      + (f'; its spans (host and device ms of each stage):\n'
-                         f'{report}' if extra else ''), flush=True)
+                print(f'apps: benchmark {label}, m101 s16 f32, 20 frames at 721x1281: K1 '
+                      f'launches {n}', flush=True)
 
-            out, n, secs = run_app(benchmark, ['--image_dir', 'images', '--batch_size', '128',
-                                               '--image_size', '513', '--allow_random_init',
-                                               '--profile', 'trace_batch'])
+            out, n = run_app(benchmark, ['--image_dir', 'images', '--batch_size', '128',
+                                         '--image_size', '513', '--allow_random_init',
+                                         '--profile', 'trace_batch'])
             batches = 1000 // 128
             check(n == batches + 2, f'benchmark b128 launched K1 {n} times (warm-up, traced '
                                     f'batch and {batches} timed batches)')
+            check(any(line.startswith('TOTAL') for line in out.splitlines()),
+                  f'benchmark b128 --profile printed no device time: {out[-500:]}')
             launches['benchmark b128'] = n
-            report = out.split('Average FPS:', 1)[0].strip().splitlines()
-            total = next(i for i, line in enumerate(report) if line.startswith('TOTAL'))
-            # The largest kernels, the total, and the pipeline's spans.
-            report = report[:12] + report[total:]
-            print(f'apps: benchmark --batch_size 128 --image_size 513, m101 s16 f32: '
-                  f'{printed_fps(out):.1f} FPS ({smi}); K1 launches {n} (warm-up, the traced '
-                  f'batch, {batches} timed); device time of the traced batch by kernel '
-                  f'(torch.profiler), then its spans:\n' + '\n'.join(report), flush=True)
+            print(f'apps: benchmark --batch_size 128 --image_size 513 --profile, m101 s16 f32: '
+                  f'K1 launches {n} (warm-up, the traced batch, {batches} timed), the traced '
+                  f'batch\'s device time printed', flush=True)
 
             capture = cv2.VideoCapture
             for when, frames in (('cold', 8), ('warm', 24)):
                 cv2.VideoCapture = lambda _id: FakeCapture(
                     [bgr[i % len(bgr)].copy() for i in range(frames)])
                 try:
-                    out, n, secs = run_app(webcam_demo, ['--no_display', '--max_frames',
-                                                         str(frames), '--allow_random_init'])
+                    _, n = run_app(webcam_demo, ['--no_display', '--max_frames', str(frames),
+                                                 '--allow_random_init'])
                 finally:
                     cv2.VideoCapture = capture
                 check(n == frames, f'webcam_demo {when} launched K1 {n} times for {frames} '
                                    f'frames')
                 launches[f'webcam_demo {when}'] = n
                 print(f'apps: webcam_demo {when} --no_display, m101 s16 f32, a stand-in capture '
-                      f'of {frames} frames 720x1280 -> 513x913: {printed_fps(out):.2f} FPS '
-                      f'({smi}); K1 launches {n}', flush=True)
-            webcam_steps(bgr, smi)
+                      f'of {frames} frames 720x1280 -> 513x913: K1 launches {n}', flush=True)
 
             writer = cv2.VideoWriter('in.mp4', cv2.VideoWriter_fourcc(*'mp4v'), 30, (1280, 720))
             check(writer.isOpened(), 'cv2 cannot write an mp4v video here')
@@ -1659,7 +1405,7 @@ def apps_phase(dev, smi) -> dict:
             writer.release()
             for extra, label in (([], 'host resize'), (['--device_preprocess'],
                                                        '--device_preprocess')):
-                out, n, secs = run_app(video_demo, [
+                _, n = run_app(video_demo, [
                     '--video', 'in.mp4', '--resize', '513x513', '--batch_size', '16',
                     '--poses_out', 'poses.jsonl', '--allow_random_init', *extra])
                 frames = [json.loads(line)['frame'] for line in open('poses.jsonl')]
@@ -1667,9 +1413,8 @@ def apps_phase(dev, smi) -> dict:
                 check(n == 3, f'video_demo {label} launched K1 {n} times for 3 batches')
                 launches[f'video_demo {label}'] = n
                 print(f'apps: video_demo {label}, m101 s16 f32, 40 frames 720x1280 -> 513x513, '
-                      f'batch 16, depth 2: {printed_fps(out):.1f} FPS (the first batch\'s '
-                      f'start-up included; {smi}); one JSONL record a frame, in order; K1 '
-                      f'launches {n}', flush=True)
+                      f'batch 16, depth 2: one JSONL record a frame, in order; K1 launches {n}',
+                      flush=True)
 
             per_frame_decode(dev, bgr[0])
             launches['video_demo fixture'] = fixture_parity()
@@ -1694,7 +1439,7 @@ def fixture_parity() -> int:
     writer.release()
     argv = ['--video', 'fixture.mp4', '--model', '50', '--resize', '353x481',
             '--batch_size', '4']
-    _, n, _ = run_app(video_demo, argv + ['--poses_out', 'card.jsonl'])
+    _, n = run_app(video_demo, argv + ['--poses_out', 'card.jsonl'])
     run_app(video_demo, argv + ['--poses_out', 'cpu.jsonl', '--device', 'cpu'])
     check(n == 2, f'video_demo (fixture) launched K1 {n} times for 2 batches')
     card, cpu = ([json.loads(line) for line in open(f)] for f in ('card.jsonl', 'cpu.jsonl'))
@@ -1718,11 +1463,11 @@ def fixture_parity() -> int:
     return n
 
 
-def phase8(dev, smi):
-    """Phase 8: the single pose, then the apps; returns (K1's timing at the
-    single pose's shape, K1's launches by path)."""
-    timing, single = single_pose_phase(dev)
-    return timing, {'single pose': single, **apps_phase(dev, smi)}
+def phase8(dev):
+    """Phase 8: the single pose, then the apps; returns (K1's max abs
+    difference from its plain version, K1's launches by path)."""
+    err, single = single_pose_phase(dev)
+    return err, {'single pose': single, **apps_phase(dev)}
 
 
 TRAIN_PHOTO_HW = ((480, 640), (513, 513), (720, 1280), (600, 450))
@@ -1867,10 +1612,8 @@ def train_runs(dev, ds, root) -> dict:
         logger = trainer.MetricLogger(verbose=False)
         torch.cuda.synchronize()
         traversal.launches = sepconv.launches = 0
-        t0 = time.perf_counter()
         state = trainer.train(ds, ds, cfg, logger=logger, params=init, resume=False, device=dev)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
         k1, k2 = traversal.launches, sepconv.launches
         launches[name] = k1, k2
         after = trainer.evaluate(ds, cfg, state.params, eval_pose_metrics=False, device=dev)
@@ -1911,9 +1654,7 @@ def train_runs(dev, ds, root) -> dict:
               f'pose metrics: train loss ' + ', '.join(f'{h["train_loss"]:.6f}' for h in hist) +
               '; test loss ' + ', '.join(f'{h["test_loss"]:.6f}' for h in hist) +
               f'; OKS {hist[-1]["oks"]:.4f}, mAP {hist[-1]["mAP"]:.4f}; eval loss '
-              f'{before["loss"]:.6f} -> {after["loss"]:.6f}; epoch s ' +
-              ', '.join(f'{h["epoch_time_s"]:.2f}' for h in hist) + f' ({secs:.2f} s in '
-              f'train(), the first epoch\'s start-up included); trunk bitwise unchanged, heads '
+              f'{before["loss"]:.6f} -> {after["loss"]:.6f}; trunk bitwise unchanged, heads '
               f'moved up to {moved:.3g}; checkpoint step {restored.step} restored bitwise '
               f'(params and Adam moments); K1 launches {k1}, K2 launches {k2}' +
               ('; visual dumps written' if visual else ''), flush=True)
@@ -1925,13 +1666,11 @@ def export_from_checkpoint(dev, ckpt, root, init):
     """Phase 9 (4): `posenet-export-torch --from_checkpoint` to a `cuda`
     artifact, bitwise equal to PoseNetPipeline over the restored params."""
     path = os.path.join(root, 'trained.posenet')
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         export_main(['--model', str(TRAIN_MODEL), '--output_stride', '16', '--size',
                      str(TRAIN_SIZE), str(TRAIN_SIZE), '--batch_sizes', '2', '--platforms',
                      dev.type, '--compute_dtype', 'bfloat16',
                      '--from_checkpoint', ckpt, '--output', path])
-    export_s = time.perf_counter() - t0
     cfg, mcfg = train_cfgs(torch.bfloat16)
     restored = trainer.restore_checkpoint(ckpt, ts.init_train_state(init, cfg, dev))
     pipe = PoseNetPipeline(PoseNet(ts.tree_map(torch.Tensor.detach, restored.params), mcfg))
@@ -1943,158 +1682,20 @@ def export_from_checkpoint(dev, ckpt, root, init):
     for f, a, b in zip(DecodedPoses._fields, got, ref):
         check(torch.equal(a, b), f'--from_checkpoint artifact differs from PoseNetPipeline in {f}')
     print(f'posenet-export-torch --from_checkpoint (bf16 run, step {restored.step}) -> cuda '
-          f'artifact m{TRAIN_MODEL} s16 bf16 {TRAIN_SIZE}x{TRAIN_SIZE} b2 in {export_s:.2f} s: '
-          f'bitwise equal to '
+          f'artifact m{TRAIN_MODEL} s16 bf16 {TRAIN_SIZE}x{TRAIN_SIZE} b2: bitwise equal to '
           f'PoseNetPipeline over the restored params; poses per image '
           f'{(got.pose_scores > 0).sum(1).tolist()}', flush=True)
 
 
-def median_ms(events) -> float:
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in events]))
-
-
-def step_split(state, step, batch, n=10):
-    """Median CUDA-event times of a step's forward, loss + backward and
-    Adam, over `n` steps, and of the whole step: the forward is marked by
-    wrapping `mobilenet_v1.forward`, Adam by the optimizer's step hooks."""
-    marks = []
-
-    def mark(*_):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        marks.append(e)
-
-    forward = mobilenet_v1.forward
-
-    def marked_forward(*a, **k):
-        mark()
-        out = forward(*a, **k)
-        mark()
-        return out
-
-    hooks = [state.optimizer.register_step_pre_hook(mark),
-             state.optimizer.register_step_post_hook(mark)]
-    mobilenet_v1.forward = marked_forward
-    try:
-        for _ in range(n):
-            mark()
-            state, _ = step(state, batch)
-            mark()
-    finally:
-        mobilenet_v1.forward = forward
-        for h in hooks:
-            h.remove()
-    torch.cuda.synchronize()
-    check(len(marks) == 6 * n, f'step split: {len(marks)} marks for {n} steps')
-    t = np.array([[marks[6 * i + j].elapsed_time(marks[6 * i + j + 1]) for j in range(5)]
-                  for i in range(n)])
-    # per step: [upload etc., forward, loss + backward, Adam, after Adam]
-    return {'forward': float(np.median(t[:, 1])), 'loss+backward': float(np.median(t[:, 2])),
-            'adam': float(np.median(t[:, 3])),
-            'rest': float(np.median(t[:, 0] + t[:, 4])), 'step': float(np.median(t.sum(1)))}
-
-
-def train_timing(dev, ds, smi):
-    """Phase 9 (5): steps at b16 and b2, float32 and bf16, on the card."""
-    init = train_init_params()
-    b16 = first_batch(ds, 16)
-    dcfg = DecodeConfig(min_pose_score=0.25, score_threshold=0.25)
-    for dtype in (torch.float32, torch.bfloat16):
-        name = 'float32' if dtype == torch.float32 else 'bf16'
-        for b in (16, 2):
-            batch = {k: b16[k][:b] for k in ('image', 'keypoints')}
-            cfg, mcfg = train_cfgs(dtype, batch_size=b)
-            state = ts.init_train_state(init, cfg, dev)
-            step = ts.make_train_step(mcfg, cfg)
-            for _ in range(3):
-                state, _ = step(state, batch)
-            events = []
-            for _ in range(15):
-                pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                pair[0].record()
-                state, _ = step(state, batch)
-                pair[1].record()
-                events.append(pair)
-            ms = median_ms(events)
-            t0 = time.perf_counter()
-            for _ in range(15):
-                state, m = step(state, batch)
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) / 15 * 1e3
-            split = step_split(state, step, batch)
-            staging = []
-            for _ in range(5):   # the host's part of the upload, alone
-                t0 = time.perf_counter()
-                ts._step_batch(batch, dev)
-                staging.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-            with tempfile.TemporaryDirectory() as tdir:
-                with trace(tdir, dev):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(5):
-                        state, m = step(state, batch)
-                    torch.cuda.synchronize()
-                    traced_ms = (time.perf_counter() - t0) * 1e3
-                report = device_time_report(tdir, top=8)
-            total = re.search(r'^TOTAL\s+([\d.]+)', report, re.M)
-            check(total is not None, f'no device time in the trace of {name} b{b} steps: {report}')
-            device_ms = float(total[1])
-            torch.cuda.reset_peak_memory_stats(dev)
-            held = torch.cuda.memory_allocated(dev)
-            state, m = step(state, batch)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated(dev)
-            check(np.isfinite(float(m['loss'])), f'timed {name} b{b} steps: loss {m["loss"]}')
-            eval_fn = ts.make_eval_step(mcfg, cfg)
-            eval_fn(state.params, batch)
-            events = []
-            for _ in range(10):
-                pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                pair[0].record()
-                eval_fn(state.params, batch)
-                pair[1].record()
-                events.append(pair)
-            eval_ms = median_ms(events)
-            trainer.evaluate_poses(state.params, batch, mcfg, dcfg)
-            walls = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                trainer.evaluate_poses(state.params, batch, mcfg, dcfg)
-                walls.append((time.perf_counter() - t0) * 1e3)
-            print(f'train step m{TRAIN_MODEL} s16 {name} {TRAIN_SIZE}x{TRAIN_SIZE} b{b} ({smi}): '
-                  f'{ms:.3f} ms (median of 15 '
-                  f'warm steps, CUDA events), {b / ms * 1e3:.1f} img/s; host clock over 15 '
-                  f'steps {host_ms:.3f} ms a step; split (medians of 10): forward '
-                  f'{split["forward"]:.3f} ms, loss + backward {split["loss+backward"]:.3f} ms, '
-                  f'Adam {split["adam"]:.3f} ms, upload and zero_grad {split["rest"]:.3f} ms '
-                  f'(step {split["step"]:.3f} ms); the batch\'s pinned staging and upload on the '
-                  f'host (`_step_batch`, host clock, median of 5) {np.median(staging):.3f} ms; '
-                  f'device busy {device_ms:.3f} ms of '
-                  f'{traced_ms:.3f} ms over 5 traced steps ({device_ms / traced_ms:.1%}); peak '
-                  f'memory {peak / 2 ** 20:.1f} MiB ({held / 2 ** 20:.1f} MiB held before the '
-                  f'step); eval loss {eval_ms:.3f} ms a batch (CUDA events), forward + decode '
-                  f'+ host scoring {np.median(walls):.3f} ms a batch (host clock, median of 5)',
-                  flush=True)
-            if b == 16:
-                print(f'device time of 5 traced {name} b16 steps by kernel (torch.profiler):\n'
-                      f'{report}', flush=True)
-            del state, step
-
-
-def phase9(dev, smi) -> tuple:
+def phase9(dev) -> tuple:
     """Phase 9: heads-only fine-tuning of m101 s16 at 513x513. Returns K1's and
     K2's launches by path."""
     check(importlib.util.find_spec('cv2') is not None,
           'phase 9 needs cv2 (the dataset reads and writes JPEG files)')
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         ds = train_dataset(root)
         step_k2 = train_step_parity(dev, ds)
         runs = train_runs(dev, ds, root)
-        train_timing(dev, ds, smi)
-    print(f'phase 9 took {time.perf_counter() - t0:.1f} s', flush=True)
     k1 = {f'train() {name} (phase 9)': n for name, (n, _) in runs.items()}
     k2 = {'train step float32 b2 (phase 9)': step_k2[torch.float32],
           'train step bf16 b2 (phase 9)': step_k2[torch.bfloat16],
@@ -2104,20 +1705,6 @@ def phase9(dev, smi) -> tuple:
 
 # Phase 10: multi-device on the one card, m101 s16 at 513x513 in bf16.
 PARALLEL_MODEL, PARALLEL_SIZE = 101, 513
-
-
-def step_times(state, step, batch, n=15) -> float:
-    """Median CUDA-event ms of `n` steps, after 3 to warm up."""
-    for _ in range(3):
-        state, _ = step(state, batch)
-    events = []
-    for _ in range(n):
-        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        pair[0].record()
-        state, _ = step(state, batch)
-        pair[1].record()
-        events.append(pair)
-    return median_ms(events)
 
 
 def shard_heads(params, frames, cfg, bounds):
@@ -2237,8 +1824,7 @@ def spatial_partition(model_cfg, params, frame, dcfg, devices) -> dict:
 def rank_step(out_path: str, batch, dtype_name: str, device=None):
     """One rank of a data-parallel world (phase 10): the global batch's
     step from the seeded weights, this rank's slice on `device` (None: its
-    own card), then the step's median time over 15 more; rank 0 writes the
-    loss, the heads and the time."""
+    own card); rank 0 writes the loss and the heads."""
     full_float32()   # as the parent process runs: TF32 off
     device = mesh_lib.local_device('cuda') if device is None else torch.device(device)
     dtype = getattr(torch, dtype_name)
@@ -2248,8 +1834,6 @@ def rank_step(out_path: str, batch, dtype_name: str, device=None):
     state, m = step(state, batch)
     result = {'loss': float(m['loss']),
               'heads': ts.tree_map(lambda t: t.detach().cpu(), state.params)['heads']}
-    if device.type == 'cuda':
-        result['ms'] = step_times(state, step, batch)
     if torch.distributed.get_rank() == 0:
         torch.save(result, out_path)
 
@@ -2275,8 +1859,8 @@ def check_ranks(out_path, state, metrics, init, what) -> dict:
 
 def dp_train_phase(dev, ds, root) -> dict:
     """Phase 10 (c): the DP step at b16 at world size 1 over NCCL against
-    the single-device step, float32 and bf16, bitwise; its time against
-    the plain step's; then 2 gloo ranks on the one card. Returns K2's
+    the single-device step, float32 and bf16, bitwise; then 2 gloo ranks
+    on the one card. Returns K2's
     launches of the world-1 bf16 step."""
     batch = first_batch(ds, 16)
     init = train_init_params()
@@ -2323,20 +1907,13 @@ def dp_train_phase(dev, ds, root) -> dict:
                   f'and heads {dp_gap[1]}')
             again = gaps(('plain', False), ('plain again', False))
             reproducible = max(again[0].values()) == 0 and again[1] == 0
-            times = {}
-            for kind, m in (('plain', None), ('dp', mesh), ('dp', mesh), ('plain', None)):
-                state = ts.init_train_state(init, cfg, dev)
-                times.setdefault(kind, []).append(
-                    step_times(state, ts.make_train_step(mcfg, cfg, mesh=m), batch))
             print(f'DP train step m{TRAIN_MODEL} s16 {name} b16 {TRAIN_SIZE}x{TRAIN_SIZE}, world '
                   f'size 1 over {backend}: loss, head gradients and heads after Adam bitwise equal '
                   f'to the single-device step (cuDNN deterministic); two plain steps without '
                   f'deterministic mode ' + ('bitwise equal' if reproducible else
                                             f'apart by metrics {again[0]}, gradients and '
                                             f'heads {again[1]:.3g}') +
-                  f'; K2 launches {dk2}; step {np.mean(times["dp"]):.3f} ms (plain '
-                  f'{np.mean(times["plain"]):.3f} ms; CUDA events, median of 15, runs plain, '
-                  f'dp, dp, plain: {times})', flush=True)
+                  f'; K2 launches {dk2}', flush=True)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2356,8 +1933,7 @@ def dp_train_phase(dev, ds, root) -> dict:
     print(f'DP train step m{TRAIN_MODEL} s16 float32 b16 over 2 gloo ranks on {dev} (8 '
           f'images each): loss {got["loss_gap"]:.3g} relative from the single-device step '
           f'(limit 1e-5), heads\' updates within {got["update_gap"]:.3g} of their norm (limit '
-          f'1e-3); step {got.get("ms", float("nan")):.3f} ms (CUDA events on rank 0, median '
-          f'of 15)', flush=True)
+          f'1e-3)', flush=True)
     return launches
 
 
@@ -2375,11 +1951,9 @@ def parallel_serving(model, dev, frames) -> None:
     serve_and_check(live, 'live num_devices=1', frames, 'synth_photo frame')
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, 'dp1.posenet')
-        t0 = time.perf_counter()
         meta = save_serving_artifact(model, path, decode_cfg=dcfg, batch_sizes=(1, 8),
                                      input_hw=(PARALLEL_SIZE, PARALLEL_SIZE),
                                      platforms=(dev.type,), data_parallel_devices=1)
-        export_s = time.perf_counter() - t0
         check(meta['data_parallel_devices'] == 1, f'artifact meta {meta}')
         art = load_serving_artifact(path, device=dev.type)
         check(art.mesh is not None and art.device == dev, f'artifact on {art.device}')
@@ -2388,55 +1962,9 @@ def parallel_serving(model, dev, frames) -> None:
         for f, a, b in zip(DecodedPoses._fields, got, ref):
             check(torch.equal(a.cpu(), b.cpu()),
                   f'data_parallel_devices=1 artifact b8 differs from the pipeline in {f}')
-        print(f'serving: artifact with data_parallel_devices=1 exported in {export_s:.1f} s, '
-              f'b8 bitwise equal to PoseNetPipeline', flush=True)
+        print('serving: artifact with data_parallel_devices=1, b8 bitwise equal to '
+              'PoseNetPipeline', flush=True)
         serve_and_check(art, 'artifact data_parallel_devices=1', frames, 'synth_photo frame')
-
-
-def best_img_s(pipe, frames) -> float:
-    """img/s of `pipe` on `frames` (on the card): best of 3 windows of 5
-    calls, each closed by synchronize."""
-    pipe(frames)
-    torch.cuda.synchronize()
-    best = float('inf')
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(5):
-            pipe(frames)
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    return 5 * frames.shape[0] / best
-
-
-def layout_timing(model, spatial_params, dcfg, frames, data_layouts, spatial_layouts, smi):
-    """Phase 10 (e) and multicard's timing: the data partition's img/s on
-    the b128 `frames` for each of `data_layouts` (name -> device list, None
-    for the unsharded pipeline), and one frame's latency for each of
-    `spatial_layouts` (CUDA events on the first card, a call's mean over
-    20, host dispatch included), every layout in turns, forward then back."""
-    def pipes(params, layouts, partition):
-        m = PoseNet(params, model.cfg)
-        return {name: PoseNetPipeline(m, dcfg) if devices is None else
-                PoseNetPipeline(m, dcfg, mesh=make_mesh(devices=devices), partition=partition)
-                for name, devices in layouts.items()}
-
-    data, spatial_pipes = (pipes(model.params, data_layouts, 'data'),
-                           pipes(spatial_params, spatial_layouts, 'spatial'))
-    rates, lat = {}, {}
-    for name in list(data) + list(data)[::-1]:
-        rates.setdefault(name, []).append(best_img_s(data[name], frames))
-    for name in list(spatial_pipes) + list(spatial_pipes)[::-1]:
-        lat.setdefault(name, []).append(
-            cuda_ms(lambda p=spatial_pipes[name]: p(frames[:1]), 20))
-    print(f'data partition timing, m{PARALLEL_MODEL} s16 bf16 b{frames.shape[0]} '
-          f'{PARALLEL_SIZE}x{PARALLEL_SIZE} ({smi}), img/s (best of 3 windows of 5, frames on '
-          f'the card): ' + ', '.join(f'{k} {np.mean(v):.1f}' for k, v in rates.items()) +
-          f' (runs: {rates})', flush=True)
-    print(f'spatial partition latency, m{PARALLEL_MODEL} s16 bf16 '
-          f'1x{PARALLEL_SIZE}x{PARALLEL_SIZE}, trunk biases + 1.0 ({smi}), ms a frame (CUDA '
-          f'events, a call\'s mean over 20): ' +
-          ', '.join(f'{k} {np.mean(v):.3f}' for k, v in lat.items()) + f' (runs: {lat})',
-          flush=True)
 
 
 def inflate_biases(params):
@@ -2450,12 +1978,11 @@ def inflate_biases(params):
     return out
 
 
-def phase10(dev, smi) -> tuple:
+def phase10(dev) -> tuple:
     """Phase 10: the multi-device layer on the one card. Returns K1's and
     K2's launches by path."""
     check(importlib.util.find_spec('cv2') is not None,
           'phase 10 needs cv2 (its train step reads phase 9\'s JPEG dataset)')
-    t0 = time.perf_counter()
     model = load_model(PARALLEL_MODEL, 16, allow_random_init=True, device=dev,
                        compute_dtype=torch.bfloat16)
     dcfg = DecodeConfig(min_pose_score=0.0)
@@ -2483,33 +2010,27 @@ def phase10(dev, smi) -> tuple:
                 k1[f'spatial partition b1 over {n} shards (phase 10)'] = launches['K1']
                 k2[f'spatial partition b1 over {n} shards (phase 10)'] = launches['K2']
 
-    # (c) the DP train step; (d) served replies; (e) timing
+    # (c) the DP train step; (d) served replies
     with tempfile.TemporaryDirectory() as root:
         ds = train_dataset(root)
         step_k2 = dp_train_phase(dev, ds, root)
     k2['DP train step bf16 b16, world size 1 (phase 10)'] = step_k2['bf16']
     parallel_serving(model, dev, frames[:16].cpu().numpy())
-    layout_timing(model, inflated, dcfg, frames[:128],
-                  {'unsharded': None, f'2 shards of {dev}': [dev] * 2},
-                  {'plain': None, **{f'{n} shard(s) of {dev}': [dev] * n for n in (1, 2, 4)}},
-                  smi)
-    print(f'phase 10 took {time.perf_counter() - t0:.1f} s', flush=True)
     return k1, k2
 
 
-def multicard(smi) -> tuple:
+def multicard() -> tuple:
     """`--only multicard`, on a host of several cards (not part of the
     one-card run): the layouts of phase 10 across every visible card. The
     data partition of 128 and of an uneven 129 frames; the spatial
     partition of one frame, bf16 and float32; the DP train step at b16
     over one NCCL rank a card against one card; an artifact exported with
     data_parallel_devices=N and loaded over the N cards (its programs moved
-    off the card they were exported on) against the pipeline; img/s and
-    latency against one card. Returns K1's and K2's launches by path."""
+    off the card they were exported on) against the pipeline. Returns
+    K1's and K2's launches by path."""
     n = torch.cuda.device_count()
     check(n >= 2, f'--only multicard needs several cards, found {n}')
     devs = [torch.device('cuda', i) for i in range(n)]
-    t0 = time.perf_counter()
     model = load_model(PARALLEL_MODEL, 16, allow_random_init=True, device=devs[0],
                        compute_dtype=torch.bfloat16)
     dcfg = DecodeConfig(min_pose_score=0.0)
@@ -2538,15 +2059,13 @@ def multicard(smi) -> tuple:
         state = ts.init_train_state(init, cfg, devs[0])
         step = ts.make_train_step(mcfg, cfg)
         state, m = step(state, batch)
-        one_ms = step_times(ts.init_train_state(init, cfg, devs[0]), step, batch)
         out_path = os.path.join(root, 'nccl_rank0.pt')
         mesh_lib.launch(rank_step, n, args=(out_path, batch, 'float32', None), backend='nccl')
         got = check_ranks(out_path, state, m, init, f'{n} NCCL ranks')
         print(f'DP train step m{TRAIN_MODEL} s16 float32 b16 over {n} NCCL ranks, one a card '
               f'({16 // n} images each): loss {got["loss_gap"]:.3g} relative from one card '
               f'(limit 1e-5), heads\' updates within {got["update_gap"]:.3g} of their norm '
-              f'(limit 1e-3); step {got["ms"]:.3f} ms on rank 0, one card {one_ms:.3f} ms (CUDA '
-              f'events, median of 15; {smi})', flush=True)
+              f'(limit 1e-3)', flush=True)
 
         path = os.path.join(root, 'dp.posenet')
         save_serving_artifact(model, path, decode_cfg=dcfg, batch_sizes=(8,),
@@ -2567,10 +2086,6 @@ def multicard(smi) -> tuple:
             check(torch.equal(a, b), f'artifact over {n} cards differs from the pipeline in {f}')
         print(f'serving: artifact with data_parallel_devices={n}, loaded over {n} cards, b8 '
               f'bitwise equal to PoseNetPipeline; K1 launches {n}, K2 {10 * n}', flush=True)
-
-    layout_timing(model, inflated, dcfg, frames[:128], {'one card': None, f'{n} cards': devs},
-                  {'one card': None, f'{n} cards': devs}, smi)
-    print(f'multicard took {time.perf_counter() - t0:.1f} s', flush=True)
     return k1, k2
 
 
@@ -2579,13 +2094,14 @@ INT8_MODEL, INT8_SIZE = 101, 513
 
 
 def int8_products(model_id, size, batch):
-    """(M, K, N, layer) of each pointwise product of the `model_id` s16
-    trunk at size x size and `batch`, with the layer's output side."""
+    """(M, layer) of each pointwise product of the `model_id` s16 trunk at
+    size x size and `batch`: its rows, and the layer (K and N are its
+    `inp` and `outp`)."""
     side, out = size, []
     for layer in mobilenet_v1.stride_plan(model_id, 16):
         side = (side - 1) // layer['stride'] + 1
         if layer['conv_type'] == 'sep':
-            out.append((batch * side * side, layer['inp'], layer['outp'], layer, side))
+            out.append((batch * side * side, layer))
     return out
 
 
@@ -2611,7 +2127,7 @@ def int8_product_checks(dev, params) -> None:
     m50 = mobilenet_v1.init_params(torch.Generator().manual_seed(50), ModelConfig(50, 16))
     g = torch.Generator(device=dev).manual_seed(11)
     cases = [(m, layer['block_id'], q_cpu, q_dev)
-             for m, _, _, layer, _ in int8_products(INT8_MODEL, INT8_SIZE, 128)]
+             for m, layer in int8_products(INT8_MODEL, INT8_SIZE, 128)]
     cases += [(9, 7, q_cpu, q_dev),
               (66049, 1, quantized.quantize_params(m50), quantized.quantize_params(m50, dev))]
     lines = []
@@ -2751,27 +2267,20 @@ def converter_cold_start(dev) -> None:
     (tests/torch_tfjs_fixture.py) in a download cache, `load_model` cold
     from it on the card (a fetch would fail the run), then from the `.npz`
     it wrote on the CPU: float32 heads of a photo within 1e-4 of each
-    head's scale; the seconds the cold start took."""
+    head's scale."""
     def no_fetch(url):
         check(False, f'the cold start fetched {url}; the checkpoint is in the cache')
 
     with tempfile.TemporaryDirectory() as root:
         cache = os.path.join(root, 'cache')
-        t0 = time.perf_counter()
         torch_tfjs_fixture.write_tfjs_checkpoint(cache, 'mobilenet_v1_101', model_id=101)
-        write_s = time.perf_counter() - t0
         base_dir, fetch = download.BASE_DIR, download._fetch
         download.BASE_DIR, download._fetch = cache, no_fetch
         try:
-            t0 = time.perf_counter()
             model = load_model(101, 16, os.path.join(root, 'models'), device=dev)
-            torch.cuda.synchronize()
-            cold_s = time.perf_counter() - t0
         finally:
             download.BASE_DIR, download._fetch = base_dir, fetch
-        t0 = time.perf_counter()
         cpu_model = load_model(101, 16, os.path.join(root, 'models'), device='cpu')
-        warm_s = time.perf_counter() - t0
     x = normalize(torch.from_numpy(synth_photo(257, 257, 1200)[None]), torch.float32)
     ref = cpu_model.forward_nhwc(x)
     got = model.forward_nhwc(x.to(dev))
@@ -2780,148 +2289,14 @@ def converter_cold_start(dev) -> None:
         rel = float((got[k].cpu() - ref[k]).abs().max()) / max(1.0, float(ref[k].abs().max()))
         worst = max(worst, rel)
         check(rel <= 1e-4, f'converted m101 f32 head {k}: card vs CPU {rel:.3g} of scale')
-    print(f'converter: tfjs m101 checkpoint written in {write_s:.2f} s; load_model cold start '
-          f'(read the shards, convert, write the .npz, load onto {dev}) {cold_s:.2f} s, no '
-          f'fetch; the .npz onto the CPU {warm_s:.2f} s; f32 heads 1x257x257 card vs CPU '
-          f'within {worst:.3g} of each head\'s scale (limit 1e-4)', flush=True)
+    print(f'converter: load_model cold start from a tfjs m101 checkpoint (read the shards, '
+          f'convert, write the .npz, load onto {dev}), no fetch; the .npz onto the CPU; f32 '
+          f'heads 1x257x257 card vs CPU within {worst:.3g} of each head\'s scale (limit 1e-4)', flush=True)
 
 
-def device_time_by_kind(tdir) -> dict:
-    """ms of device time in a trace, by kind of kernel name: the convs
-    (cuDNN), the products (cuBLASLt's GEMMs) and the rest (the elementwise
-    passes: quantize, dequantize, epilogue, casts, ReLU6)."""
-    with open(os.path.join(tdir, 'trace.json')) as f:
-        events = json.load(f)['traceEvents']
-    kinds = {'convs': 0.0, 'products': 0.0, 'elementwise': 0.0}
-    for e in events:
-        if e.get('ph') == 'X' and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
-            name = e['name'].lower()
-            kind = ('convs' if any(s in name for s in ('conv', 'fprop', 'cudnn')) else
-                    'products' if 'gemm' in name else 'elementwise')
-            kinds[kind] += float(e.get('dur', 0.0)) / 1e3
-    return kinds
-
-
-def int8_timing(dev, model, smi, batch=128) -> None:
-    """Phase 11 (6), beside the card's `name, power.limit`: the int8 and
-    bf16 fused m101 s16 513x513 b128 forward + peaked decode in img/s, in
-    turns, best of 3 windows of 10; each forward alone; per layer the
-    product (`int8_matmul`) against cuDNN's bf16 1x1 conv at its shape and
-    against K2 (its stride-1 rate-1 layers), and the whole int8 layer
-    against the bf16 one; a traced int8 batch's device time by kind of
-    kernel; peak memory of each forward; the bounds."""
-    qcfg = ModelConfig(INT8_MODEL, 16, compute_dtype=torch.bfloat16, quantized=True)
-    bcfg = ModelConfig(INT8_MODEL, 16, compute_dtype=torch.bfloat16)
-    qparams = quantized.quantize_params(model.params, dev)
-    bparams = mobilenet_v1.cast_params(model.params, torch.bfloat16, dev)
-    g = torch.Generator(device=dev).manual_seed(14)
-    frames = torch.randint(0, 256, (batch, INT8_SIZE, INT8_SIZE, 3), generator=g, device=dev,
-                           dtype=torch.uint8)
-    peaked = peaked_heads(batch, 33, 8, dev)
-    dcfg = DecodeConfig(min_pose_score=0.25)
-    forwards = {
-        'int8': lambda: quantized.forward_quantized(
-            qparams, normalize(frames, torch.bfloat16), qcfg),
-        'bf16': lambda: mobilenet_v1.forward(bparams, normalize(frames, torch.bfloat16), bcfg)}
-    best = {}
-    for turn in (('int8', 'bf16'), ('bf16', 'int8'), ('int8', 'bf16')):
-        for name in turn:
-            forwards[name]()
-            decode_batch(*peaked, 16, dcfg)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(10):
-                forwards[name]()
-                decode_batch(*peaked, 16, dcfg)
-            torch.cuda.synchronize()
-            best[name] = min(best.get(name, float('inf')), time.perf_counter() - t0)
-    fwd_ms, peak_mib = {}, {}
-    for name, fn in forwards.items():
-        fwd_ms[name] = cuda_ms(fn, 5)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        held = torch.cuda.memory_allocated(dev)
-        fn()
-        torch.cuda.synchronize()
-        peak_mib[name] = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 20
-    with tempfile.TemporaryDirectory() as tdir:
-        with trace(tdir, dev):
-            forwards['int8']()
-        kinds = device_time_by_kind(tdir)
-        report = device_time_report(tdir, top=12)
-    print(f'int8 vs bf16, fused m{INT8_MODEL} s16 {INT8_SIZE}x{INT8_SIZE} b{batch} forward + '
-          f'peaked decode ({smi}): int8 {10 * batch / best["int8"]:.1f} img/s, bf16 '
-          f'{10 * batch / best["bf16"]:.1f} img/s (in turns, best of 3 windows of 10); forward '
-          f'alone (CUDA events, mean of 5) int8 {fwd_ms["int8"]:.3f} ms, bf16 '
-          f'{fwd_ms["bf16"]:.3f} ms; peak memory of a forward above what was held: int8 '
-          f'{peak_mib["int8"]:.1f} MiB, bf16 {peak_mib["bf16"]:.1f} MiB', flush=True)
-    print(f'int8 b{batch} forward, device time by kind (one traced batch, torch.profiler): '
-          f'{ {k: f"{v:.3f} ms" for k, v in kinds.items()} }\n{report}', flush=True)
-    del frames
-
-    rows, totals = [], {'int8 product': 0.0, 'cudnn 1x1': 0.0, 'int8 layer': 0.0,
-                        'bf16 layer': 0.0, 'product bound': 0.0}
-    s8_ops = 0.0
-    for m, k, n, layer, side in int8_products(INT8_MODEL, INT8_SIZE, batch):
-        i, s = layer['block_id'], layer['stride']
-        qp, bp = qparams['backbone'][i], bparams['backbone'][i]
-        q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        x = torch.rand((batch, side, side, k), generator=g, device=dev).mul(6).to(
-            torch.bfloat16).permute(0, 3, 1, 2)
-        side_in = (side - 1) * s + 1
-        q_in = torch.randint(-127, 128, (batch, side_in, side_in, k), generator=g, device=dev,
-                             dtype=torch.int8).permute(0, 3, 1, 2)
-        x_in = quantized._dequantize_act(q_in, torch.bfloat16)
-        w = bp['pw_w'].to(torch.bfloat16)
-
-        def int8_layer():
-            return quantized._quantize_act(quantized.run_sep_layer(q_in, layer, qp))
-
-        ms = {'int8 product': cuda_ms(lambda: quantized.int8_matmul(q, qp['pw_w8']), 10),
-              'cudnn 1x1': cuda_ms(lambda: torch.nn.functional.conv2d(x, w), 10),
-              'int8 layer': cuda_ms(int8_layer, 5),
-              'bf16 layer': cuda_ms(lambda: mobilenet_v1.run_layer(layer, bp, x_in, bcfg), 5)}
-        bf16_route = ('K2' if mobilenet_v1.uses_sepconv(layer, bcfg)
-                      else 'cuDNN depthwise + pointwise: stride 2 or rate 2, no K2')
-        bound = max((m * k + k * n + 4 * m * n) / HBM_BYTES_S, 2 * m * k * n / S8_TOPS) * 1e3
-        ms['product bound'] = bound
-        for key in totals:
-            totals[key] += ms[key]
-        s8_ops += 2 * m * k * n
-        rows.append(f'layer {i} ({m}, {k}, {n}): int8 product {ms["int8 product"]:.4f} ms, '
-                    f'cuDNN bf16 1x1 {ms["cudnn 1x1"]:.4f} ms, bound of the product '
-                    f'{bound:.4f} ms; int8 layer {ms["int8 layer"]:.4f} ms, bf16 layer '
-                    f'{ms["bf16 layer"]:.4f} ms ({bf16_route})')
-        del q, x, q_in, x_in
-    # The trunk as one function of the bf16 input: input, weights and the
-    # bf16 features read or written once; the s8 products at the int8
-    # rate, conv0 and the depthwise convs at the bf16 rate.
-    plan = mobilenet_v1.stride_plan(INT8_MODEL, 16)
-    side, bf16_ops = INT8_SIZE, 0.0
-    for layer in plan:
-        side = (side - 1) // layer['stride'] + 1
-        taps = 27 if layer['conv_type'] == 'input' else 9
-        bf16_ops += 2 * batch * side * side * layer['outp' if taps == 27 else 'inp'] * taps
-    n_weights = sum(t.numel() for layer in qparams['backbone'] for t in layer.values())
-    bytes_io = (batch * INT8_SIZE ** 2 * 3 * 2 + n_weights * 2
-                + batch * side * side * plan[-1]['outp'] * 2)
-    trunk_bound = max(bytes_io / HBM_BYTES_S, s8_ops / S8_TOPS + bf16_ops / BF16_TENSOR_FLOPS)
-    print(f'int8 trunk per layer, m{INT8_MODEL} s16 b{batch} ({smi}; CUDA events):\n  '
-          + '\n  '.join(rows), flush=True)
-    print(f'int8 trunk over its 13 products ({smi}): int8 products {totals["int8 product"]:.4f} '
-          f'ms against cuDNN bf16 1x1 {totals["cudnn 1x1"]:.4f} ms, bound {totals["product bound"]:.4f} '
-          f'ms; the int8 layers {totals["int8 layer"]:.4f} ms against the bf16 layers '
-          f'{totals["bf16 layer"]:.4f} ms; the trunk\'s bound {trunk_bound * 1e3:.4f} ms '
-          f'({bytes_io / 1e9:.3f} GB / 3.35 TB/s = {bytes_io / HBM_BYTES_S * 1e3:.4f} ms; '
-          f'{s8_ops / 1e12:.3f} s8 Tops / 1979 TOPS + {bf16_ops / 1e12:.3f} bf16 TFLOP / 989 '
-          f'TFLOP/s = {(s8_ops / S8_TOPS + bf16_ops / BF16_TENSOR_FLOPS) * 1e3:.4f} ms)',
-          flush=True)
-
-
-def phase11(dev, smi) -> dict:
+def phase11(dev) -> dict:
     """Phase 11: the int8 trunk on the card. Returns K1's launches by path
     (K2's are 0 on every one of them)."""
-    t0 = time.perf_counter()
     base = load_model(INT8_MODEL, 16, allow_random_init=True, device=dev,
                       compute_dtype=torch.bfloat16)
     model = PoseNet(base.params, dataclasses.replace(base.cfg, quantized=True))
@@ -2933,13 +2308,11 @@ def phase11(dev, smi) -> dict:
     int8_trunk_check(dev, cpu_params)
     launches = int8_pipeline_checks(dev, model, DecodeConfig(min_pose_score=0.25))
     converter_cold_start(dev)
-    int8_timing(dev, model, smi)
-    print(f'phase 11 took {time.perf_counter() - t0:.1f} s', flush=True)
     return launches
 
 
 def phase12_single_and_features(dev) -> dict:
-    """Phase 12 (d): `decode_single` on the card against the CPU, bitwise,
+    """Phase 12 (a): `decode_single` on the card against the CPU, bitwise,
     one K1 launch a call; `backbone_features` in bf16 through K2 on the
     card against its plain version on the CPU. Returns the launches."""
     rng = np.random.RandomState(12)
@@ -2982,70 +2355,71 @@ def phase12_single_and_features(dev) -> dict:
     return {'K1': k1, 'K2': k2}
 
 
-def phase12(dev, smi) -> tuple:
-    """Phase 12: the benchmark scripts and the tool twins on the card.
-    Returns K1's and K2's launches by path."""
-    t0 = time.perf_counter()
-    k1, k2 = {}, {}
-
-    # (a) bench_torch at its defaults; one fused_step's launches counted here
-    line = bench_torch.main([])
-    extra = line['extra']
-    check(extra['device'] == smi, f'bench_torch device {extra["device"]!r}, not {smi!r}')
-    check(extra['poses_per_peaked_image'] >= 1,
-          f'bench_torch: {extra["poses_per_peaked_image"]} poses a peaked image')
-    params, frames, peaked, cfg, dcfg = bench_torch.setup(101, 16, 513, 513, 128, dev)
+def phase12_infer_launches(dev) -> tuple:
+    """Phase 12 (b): `infer` over bf16 m50 s16 at 1x513x513, m101 s16 at
+    16x513x513, m101 s8 at 4x721x1281 and m101 s16 at 1x721x1281 (seeded
+    random weights and frames), each call warmed, then counted alone: K1
+    once, K2 once for each fused layer (`k2_per_forward`); then
+    `decode_batch` on peaked b4 heads at the s8 1080p grid, 136x241: K1
+    once, K2 never, the poses those of the CPU's decode. Returns K1's and K2's launches by path."""
+    dcfg = DecodeConfig(min_pose_score=0.25)
+    k1, k2, counts = {}, {}, []
+    for model_id, stride, b, h, w in ((50, 16, 1, 513, 513), (101, 16, 16, 513, 513),
+                                      (101, 8, 4, 721, 1281), (101, 16, 1, 721, 1281)):
+        cfg = ModelConfig(model_id=model_id, output_stride=stride, compute_dtype=torch.bfloat16)
+        params = mobilenet_v1.cast_params(
+            mobilenet_v1.init_params(torch.Generator().manual_seed(0), cfg), torch.bfloat16, dev)
+        frames = torch.randint(0, 256, (b, h, w, 3), device=dev, dtype=torch.uint8,
+                               generator=torch.Generator(device=dev).manual_seed(1))
+        infer(params, frames, cfg, dcfg)
+        torch.cuda.synchronize()
+        traversal.launches = sepconv.launches = 0
+        poses = infer(params, frames, cfg, dcfg)
+        torch.cuda.synchronize()
+        name = f'infer m{model_id} s{stride} bf16 {b}x{h}x{w} (phase 12)'
+        k1[name], k2[name] = traversal.launches, sepconv.launches
+        want = (1, k2_per_forward(cfg))
+        check((k1[name], k2[name]) == want,
+              f'{name} launched K1 {k1[name]} and K2 {k2[name]} times, not {want}')
+        check(tuple(poses.keypoint_coords.shape) == (b, 10, 17, 2)
+              and all(bool(torch.isfinite(t.float()).all()) for t in poses),
+              f'{name}: keypoint_coords {tuple(poses.keypoint_coords.shape)} or non-finite')
+        counts.append(f'm{model_id} s{stride} {b}x{h}x{w} K1 {k1[name]}, K2 {k2[name]}')
+        del params, frames, poses
+    heads = peaked_heads(4, (136, 241), 7, dev)
     torch.cuda.synchronize()
     traversal.launches = sepconv.launches = 0
-    bench_torch.fused_step(params, frames, peaked, cfg, dcfg)
+    poses = decode_batch(*heads, 8, dcfg)
     torch.cuda.synchronize()
-    step = {'K1': traversal.launches, 'K2': sepconv.launches}
-    check(step == {'K1': 1, 'K2': 10} == extra['launches_per_step'],
-          f'bench_torch fused_step launched {step} (its own count {extra["launches_per_step"]})')
-    k1['bench_torch fused_step b128 (phase 12)'] = step['K1']
-    k2['bench_torch fused_step b128 (phase 12)'] = step['K2']
-    print(f'bench_torch: {line["value"]:.1f} img/s (windows {extra["windows_img_per_s"]}), '
-          f'{extra["poses_per_peaked_image"]:.4f} poses a peaked image (at least '
-          f'{extra["min_poses_per_peaked_image"]}); one fused_step '
-          f'launches {step} ({smi})', flush=True)
-    del params, frames, peaked
+    name = 'decode_batch s8 4x136x241 (phase 12)'
+    k1[name], k2[name] = traversal.launches, sepconv.launches
+    check((k1[name], k2[name]) == (1, 0),
+          f'{name} launched K1 {k1[name]} and K2 {k2[name]} times, not (1, 0)')
+    assert_poses_equal(poses, decode_batch(*[t.cpu() for t in heads], 8, dcfg),
+                       f'{name} on the card vs the CPU')
+    counts.append(f'decode_batch s8 4x136x241 K1 {k1[name]}, K2 {k2[name]}, equal to the '
+                  f'CPU\'s, poses per image {(poses.pose_scores > 0).sum(1).tolist()}')
+    torch.cuda.empty_cache()
+    print(f'infer bf16, launches in one call: {"; ".join(counts)}', flush=True)
+    return k1, k2
 
-    # (b) the fused step's device profile
-    with tempfile.TemporaryDirectory() as tdir:
-        traversal.launches = sepconv.launches = 0
-        prof = profile_fused_torch.main(['--trace_dir', tdir])
-        torch.cuda.synchronize()
-    check(prof['busy_ms'] is not None and 0.0 <= prof['idle_share'] < 1.0,
-          f'profile_fused_torch: busy {prof["busy_ms"]}, idle share {prof["idle_share"]}')
-    k1['profile_fused_torch, warm call + 5 traced steps (phase 12)'] = traversal.launches
-    k2['profile_fused_torch, warm call + 5 traced steps (phase 12)'] = sepconv.launches
-    print(f'profile_fused_torch b128: busy {prof["busy_ms_per_step"]:.4f} ms a step, wall '
-          f'{prof["wall_ms_per_step"]:.4f} ms a step, idle share {prof["idle_share"]:.4f}; '
-          f'device ms by kind over {prof["steps"]} steps {prof["device_ms_by_kind"]} ({smi})',
-          flush=True)
 
-    # (c) the suite's seven configs at reduced iterations
-    expected = {1: (1, k2_per_forward(ModelConfig(50, 16, compute_dtype=torch.bfloat16))),
-                2: (1, 10), 3: (1, k2_per_forward(ModelConfig(101, 8,
-                                                              compute_dtype=torch.bfloat16))),
-                4: (1, 10), 5: (0, 0), 6: (1, 0), 7: (0, 10)}
-    lines = benchmark_suite_torch.main(['--configs', '1,2,3,4,5,6,7', '--iters', '8'])
-    for n, line in zip(sorted(expected), lines):
-        got = (line['launches']['K1'], line['launches']['K2'])
-        check(line['config'].startswith(f'{n}:') and got == expected[n]
-              and line['device'] == smi,
-              f'suite config {n}: {line["config"]!r} launched {got}, expected {expected[n]}')
-        k1[f'suite config {line["config"]}, one step (phase 12)'] = got[0]
-        k2[f'suite config {line["config"]}, one step (phase 12)'] = got[1]
-    print(f'benchmark_suite_torch configs 1-7 (--iters 8): K1/K2 launches a step '
-          f'{[(line["launches"]["K1"], line["launches"]["K2"]) for line in lines]}', flush=True)
+def phase12(dev) -> tuple:
+    """Phase 12: the tools on the card. Returns K1's and K2's launches by
+    path."""
+    k1, k2 = {}, {}
 
-    # (d) decode_single and backbone_features
+    # (a) decode_single and backbone_features
     launches = phase12_single_and_features(dev)
     k1['decode_single, a call (phase 12)'] = launches['K1']
     k2['backbone_features m101 s16 bf16 (phase 12)'] = launches['K2']
 
-    # (e) the spatial partition at production grids over 8 shards
+    # (b) infer at four inference configurations, decode_batch at 136x241
+    infer_k1, infer_k2 = phase12_infer_launches(dev)
+    k1.update(infer_k1)
+    k2.update(infer_k2)
+
+    # (c) the spatial partition at production grids over 8 shards
     traversal.launches = sepconv.launches = 0
     results = verify_spatial_large_torch.main([])
     torch.cuda.synchronize()
@@ -3056,9 +2430,9 @@ def phase12(dev, smi) -> tuple:
     k2['verify_spatial_large_torch, 2 grids x (plain + 8 shards) (phase 12)'] = \
         sepconv.launches
 
-    # (f) OKS/mAP before and after a heads-only fine-tune
+    # (d) OKS/mAP before and after a heads-only fine-tune
     check(importlib.util.find_spec('cv2') is not None,
-          'phase 12 (f) needs cv2 (the synthesized dataset is written as JPEG files)')
+          'phase 12 (d) needs cv2 (the synthesized dataset is written as JPEG files)')
     with tempfile.TemporaryDirectory() as root:
         traversal.launches = sepconv.launches = 0
         acc = train_accuracy_delta_torch.run(['--workdir', os.path.join(root, 'acc')])
@@ -3072,11 +2446,10 @@ def phase12(dev, smi) -> tuple:
           f'{acc["after"]["oks"]:.4f}, mAP {acc["before"]["mAP"]:.4f} -> '
           f'{acc["after"]["mAP"]:.4f} ({"improved" if acc["improved"] else "not improved"})',
           flush=True)
-    print(f'phase 12 took {time.perf_counter() - t0:.1f} s', flush=True)
     return k1, k2
 
 
-def full_run(dev, smi) -> list:
+def full_run(dev) -> list:
     """Phases 3-12; returns the kernels' entries."""
     max_err = k1_checks(dev)
     k2_err = k2_checks(dev)
@@ -3200,92 +2573,37 @@ def full_run(dev, smi) -> list:
     # 6. serving
     serving_phase(model, dev)
 
-    # 7. timing at batch 128
-    batch = 128
-    frames = torch.randint(0, 256, (batch, 513, 513, 3), generator=g, device=dev,
-                           dtype=torch.uint8)
-    peaked = peaked_heads(batch, 33, 8, dev)
-    cfg101 = pipe.cfg
-
-    def fused():
-        return bench_torch.fused_step(pipe.params, frames, peaked, cfg101, pipe.decode_cfg)
-
-    n_iters = 10
-    fused()
-    torch.cuda.synchronize()
-    best = float('inf')
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(n_iters):
-            fused()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    img_s = n_iters * batch / best
-    fwd_ms = cuda_ms(lambda: mobilenet_v1.forward(
-        pipe.params, normalize(frames, cfg101.compute_dtype), cfg101), n_iters)
-    dec_ms = cuda_ms(lambda: decode_batch(*peaked, 16, pipe.decode_cfg), n_iters)
-    pipe_ms = cuda_ms(lambda: infer(pipe.params, frames, cfg101, pipe.decode_cfg), n_iters)
-    print(f'fused m101 s16 513x513 b{batch} bf16 forward + peaked decode: '
-          f'{img_s:.1f} img/s (best of 3 windows of {n_iters}); forward {fwd_ms:.3f} ms, '
-          f'peaked decode {dec_ms:.3f} ms, pipeline on its own heads {pipe_ms:.3f} ms '
-          f'per batch', flush=True)
-    prep_ms = graph_ms(lambda: _prepare_decode(*peaked, 16, pipe.decode_cfg))
-    prep_call_ms = cuda_ms(lambda: _prepare_decode(*peaked, 16, pipe.decode_cfg), n_iters)
-    copies_ms = graph_ms(lambda: (torch.cat(peaked[:2], dim=-1), peaked[2].contiguous(),
-                                  peaked[3].contiguous()))
-    print(f'_prepare_decode b{batch} 33x33 on the peaked heads: {prep_ms:.4f} ms a call (CUDA '
-          f'graph of 20 calls, the device alone), {prep_call_ms:.4f} ms (CUDA events, host '
-          f'dispatch included); the row copies it made before it passed views (scores '
-          f'and offsets concatenated, dfwd and dbwd made contiguous: '
-          f'{sum(t[0].numel() for t in peaked) * batch * 4 / 1e6:.1f} MB written) '
-          f'{copies_ms:.4f} ms', flush=True)
-    del frames
-    bgr = torch.randint(0, 256, (batch, 720, 1280, 3), generator=g, device=dev,
-                        dtype=torch.uint8)
-    raw_pipe(bgr)
-    torch.cuda.synchronize()
-    best = float('inf')
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(5):
-            raw_pipe(bgr)
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    raw_img_s = 5 * batch / best
-    pre_ms = cuda_ms(lambda: preprocess_on_device(bgr, (513, 513)), 5)
-    print(f'raw-frame path m101 s16 b{batch} bf16 from 720x1280 BGR: {raw_img_s:.1f} img/s '
-          f'(best of 3 windows of 5, decode on its own heads); preprocess alone '
-          f'{pre_ms:.3f} ms per batch', flush=True)
-    del bgr
-
-    k2_time = k2_timing(dev, batch)
-    stem_time = stem_timing(dev)
-
-    k1_time = k1_timing(dev, peaked, pipe.decode_cfg)
-    del peaked, frames8, bgr16, peaked8
+    # 7. the kernels alone at the cells' shapes
+    del frames8, bgr16, peaked8, pipe, raw_pipe, model
+    torch.cuda.empty_cache()
+    timing = {kernel: cell_timing(dev, kernel) for kernel in ('K2', 'stem', 'K1')}
 
     # 8. the single pose and the apps (float32, as the JAX apps run)
-    single_time, app_launches = phase8(dev, smi)
+    single_err, app_launches = phase8(dev)
 
     # 9. heads-only fine-tuning
-    train_k1, train_k2 = phase9(dev, smi)
+    train_k1, train_k2 = phase9(dev)
 
     # 10. multi-device on the one card
-    parallel_k1, parallel_k2 = phase10(dev, smi)
+    parallel_k1, parallel_k2 = phase10(dev)
 
     # 11. the int8 trunk
-    int8_launches = phase11(dev, smi)
+    int8_launches = phase11(dev)
 
-    # 12. the benchmark scripts and the tools
-    tools_k1, tools_k2 = phase12(dev, smi)
-    k1 = k1_entry(launches, max(max_err, single_time['err']), k1_time)
-    k1['launches_by_path'] = {'main path (phase 5)': launches, **app_launches, **train_k1,
-                              **parallel_k1, **{k: v['K1'] for k, v in int8_launches.items()},
-                              **tools_k1}
-    k2 = k2_entry(k2_launches, k2_err, k2_time)
-    k2['launches_by_path'] = {'main path (phase 5)': k2_launches, **train_k2, **parallel_k2,
-                              **{k: v['K2'] for k, v in int8_launches.items()}, **tools_k2}
-    return [k1, k2, stem_entry(stem_count, stem_by_path, stem_err, stem_time)]
+    # 12. the tools
+    tools_k1, tools_k2 = phase12(dev)
+    k1_paths = {'main path (phase 5)': launches, **app_launches, **train_k1, **parallel_k1,
+                **{k: v['K1'] for k, v in int8_launches.items()}, **tools_k1}
+    k2_paths = {'main path (phase 5)': k2_launches, **train_k2, **parallel_k2,
+                **{k: v['K2'] for k, v in int8_launches.items()}, **tools_k2}
+    return [entry('K1', launches=launches, launches_by_path=k1_paths,
+                  max_abs_err=max(max_err, single_err), cells=timing['K1']),
+            entry('K2', launches=k2_launches, launches_by_path=k2_paths, max_abs_err=k2_err,
+                  cells=timing['K2']),
+            entry('stem', launches=stem_count,
+                  launches_by_path={'main path (phase 5, ResNet50 s16 bf16 b8 513x513)':
+                                    stem_count, **stem_by_path},
+                  max_abs_err=stem_err, cells=timing['stem'])]
 
 
 def main(argv=None) -> int:
@@ -3296,98 +2614,72 @@ def main(argv=None) -> int:
                              'phase 8 (the single pose and the apps), phase 9 '
                              '(training), phase 10 (multi-device on one card) or its '
                              'layouts across every card of a host with several, '
-                             'phase 11 (the int8 trunk) or phase 12 (the benchmark '
-                             'scripts and the tools)')
+                             'phase 11 (the int8 trunk) or phase 12 (the tools)')
     only = parser.parse_args(argv).only
     found = device_phase()
     if found is None:
         return 1
-    kind, dev, smi = found
+    kind, dev = found
     with tempfile.TemporaryDirectory() as cache:
         download._fetch, download.BASE_DIR = offline_fetch, cache
-        kernels = run_phases(only, dev, smi)
+        kernels = run_phases(only, dev)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
     return 0
 
 
-def run_phases(only, dev, smi) -> list:
+def run_phases(only, dev) -> list:
     """Phase 2, then the phases `--only` names (all without it); returns
-    the kernels' entries."""
+    the kernels' entries. Without a main path, `launches` is counted over
+    the run that `launches_from` names."""
     build_phase()
     if only == 'k1':
         traversal.launches = 0
-        k1_err = k1_checks(dev)
-        # No main path runs here: `launches` is the checks'.
-        kernels = [dict(k1_entry(traversal.launches, k1_err,
-                                 k1_timing(dev, peaked_heads(128, 33, 8, dev),
-                                           DecodeConfig(min_pose_score=0.25))),
-                        launches_from='the K1 checks of phase 3, not the main path')]
-    elif only == 'k2':
-        k2_err = k2_checks(dev)
-        k2_launches = k2_trunk_launches(dev)
-        # No main path runs here: `launches` is the trunk check's (2x65x65).
-        kernels = [dict(k2_entry(k2_launches, k2_err, k2_timing(dev)),
-                        launches_from='bf16 trunk check at 2x65x65, not the main path')]
-    elif only == 'stem':
-        stem_err = stem_checks(dev)
+        err = k1_checks(dev)
+        return [entry('K1', launches=traversal.launches,
+                      launches_from='the K1 checks of phase 3, not the main path',
+                      max_abs_err=err, cells=cell_timing(dev, 'K1'))]
+    if only == 'k2':
+        err = k2_checks(dev)
+        return [entry('K2', launches=k2_trunk_launches(dev),
+                      launches_from='bf16 trunk check at 2x65x65, not the main path',
+                      max_abs_err=err, cells=cell_timing(dev, 'K2'))]
+    if only == 'stem':
+        err = stem_checks(dev)
         by_path = stem_launches(dev)
-        kernels = [stem_entry(stem_main_path(dev), by_path, stem_err, stem_timing(dev))]
-    elif only == 'apps':
-        timing, app_launches = phase8(dev, smi)
-        # No main path runs here: `launches` is the single pose's (phase 8),
-        # and the timing is K1's at its B = K = 1 shape.
-        kernels = [dict(k1_entry(app_launches['single pose'], timing['err'], timing),
-                        launches_from='the single-pose calls of phase 8, not the main path',
-                        launches_by_path=app_launches)]
-    elif only == 'train':
-        train_k1, train_k2 = phase9(dev, smi)
-        # No main path runs here: `launches` is the bf16 train() run's.
-        run = 'train() bf16 (phase 9)'
-        kernels = [
-            dict(k1_entry(train_k1[run], 0.0, k1_timing(dev, peaked_heads(128, 33, 8, dev),
-                                                          DecodeConfig(min_pose_score=0.25))),
-                 launches_from=f'{run}, not the main path', launches_by_path=train_k1),
-            dict(k2_entry(train_k2[run], 0.0, k2_timing(dev)),
-                 launches_from=f'{run}, not the main path', launches_by_path=train_k2)]
-    elif only in ('parallel', 'multicard'):
-        if only == 'parallel':
-            parallel_k1, parallel_k2 = phase10(dev, smi)
-            run = f'data partition b128 over 2 shards of {dev} (phase 10)'
-        else:
-            parallel_k1, parallel_k2 = multicard(smi)
-            run = f'data partition b128 over {torch.cuda.device_count()} cards (multicard)'
-        # No main path runs here: `launches` is the data partition's.
-        kernels = [
-            dict(k1_entry(parallel_k1[run], 0.0,
-                          k1_timing(dev, peaked_heads(128, 33, 8, dev),
-                                    DecodeConfig(min_pose_score=0.25))),
-                 launches_from=f'{run}, not the main path', launches_by_path=parallel_k1),
-            dict(k2_entry(parallel_k2[run], 0.0, k2_timing(dev)),
-                 launches_from=f'{run}, not the main path', launches_by_path=parallel_k2)]
-    elif only == 'int8':
-        int8_launches = phase11(dev, smi)
-        # No main path runs here: `launches` is the quantized pipeline's.
+        launches = stem_main_path(dev)
+        return [entry('stem', launches=launches,
+                      launches_by_path={'main path (phase 5, ResNet50 s16 bf16 b8 513x513)':
+                                        launches, **by_path},
+                      max_abs_err=err, cells=cell_timing(dev, 'stem'))]
+    if only == 'apps':
+        err, app_launches = phase8(dev)
+        return [entry('K1', launches=app_launches['single pose'],
+                      launches_from='the single-pose calls of phase 8, not the main path',
+                      launches_by_path=app_launches, max_abs_err=err)]
+    if only == 'int8':
+        by_path = {k: v['K1'] for k, v in phase11(dev).items()}
         run = 'quantized pipeline b8 + peaked decode (phase 11)'
-        kernels = [dict(k1_entry(int8_launches[run]['K1'], 0.0,
-                                 k1_timing(dev, peaked_heads(128, 33, 8, dev),
-                                           DecodeConfig(min_pose_score=0.25))),
-                        launches_from=f'{run}, not the main path',
-                        launches_by_path={k: v['K1'] for k, v in int8_launches.items()})]
+        return [entry('K1', launches=by_path[run], launches_from=f'{run}, not the main path',
+                      launches_by_path=by_path)]
+    if only == 'train':
+        k1, k2 = phase9(dev)
+        runs = ['train() bf16 (phase 9)'] * 2
+    elif only == 'parallel':
+        k1, k2 = phase10(dev)
+        runs = [f'data partition b128 over 2 shards of {dev} (phase 10)'] * 2
+    elif only == 'multicard':
+        k1, k2 = multicard()
+        runs = [f'data partition b128 over {torch.cuda.device_count()} cards (multicard)'] * 2
     elif only == 'tools':
-        tools_k1, tools_k2 = phase12(dev, smi)
-        # No main path of phase 5 runs here: `launches` is bench_torch's fused step.
-        run = 'bench_torch fused_step b128 (phase 12)'
-        kernels = [
-            dict(k1_entry(tools_k1[run], 0.0, k1_timing(dev, peaked_heads(128, 33, 8, dev),
-                                                          DecodeConfig(min_pose_score=0.25))),
-                 launches_from=f'{run}, not the main path', launches_by_path=tools_k1),
-            dict(k2_entry(tools_k2[run], 0.0, k2_timing(dev)),
-                 launches_from=f'{run}, not the main path', launches_by_path=tools_k2)]
+        k1, k2 = phase12(dev)
+        runs = ['decode_single, a call (phase 12)', 'backbone_features m101 s16 bf16 (phase 12)']
     else:
-        kernels = full_run(dev, smi)
-    return kernels
+        return full_run(dev)
+    return [entry(kernel, launches=paths[run], launches_from=f'{run}, not the main path',
+                  launches_by_path=paths)
+            for kernel, paths, run in (('K1', k1, runs[0]), ('K2', k2, runs[1]))]
 
 
 if __name__ == '__main__':

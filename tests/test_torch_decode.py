@@ -39,7 +39,7 @@ from posenet_tpu_torch.ops import traversal
 
 from tests.test_decode import synth_heads
 from tests.test_torch_single_pose import _fixture_heads
-from tests.torch_k1_cases import head_views, nose_zero_heads
+from tests.torch_k1_cases import head_views, nose_zero_heads, peaked_heads
 
 GRIDS = [((33, 33), 16), ((91, 161), 8)]
 
@@ -241,6 +241,15 @@ def test_traversal_zero_score_landing_at_the_nose_matches_jax():
     nose = ours[0][0, :4, 0].tolist()
     assert nose[0] == 0.0 and nose[1:] == [np.float32(0.2)] * 3
     assert ours[1][0, 0, 0].tolist() != [0.0, 0.0]          # landed, and left empty
+
+
+def test_peaked_heads_need_eleven_cells():
+    heads = peaked_heads(2, (11, 13), 7, 'cpu')
+    assert [tuple(t.shape) for t in heads] == [(2, 11, 13, c) for c in (17, 34, 32, 32)]
+    square = peaked_heads(2, 13, 7, 'cpu')
+    assert all(torch.equal(a, b) for a, b in zip(square, peaked_heads(2, (13, 13), 7, 'cpu')))
+    with pytest.raises(ValueError, match='11x11'):
+        peaked_heads(2, 9, 7, 'cpu')
 
 
 def test_prepare_decode_reads_heads_in_place():

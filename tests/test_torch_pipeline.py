@@ -142,8 +142,8 @@ def test_load_model_reads_checkpoint_or_raises(tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Importing the port (every module of it), its benchmark scripts and
-    its tools other than the JAX-against-port sweeps leaves jax unloaded."""
+    """Importing the port (every module of it) and its tools other than
+    the JAX-against-port sweeps leaves jax unloaded."""
     code = ("import sys, posenet_tpu_torch, posenet_tpu_torch.ops._build, "
             "posenet_tpu_torch.ops.traversal, posenet_tpu_torch.ops.sepconv, "
             "posenet_tpu_torch.preprocess, posenet_tpu_torch.pipeline, "
@@ -154,8 +154,7 @@ def test_port_never_imports_jax():
             "posenet_tpu_torch.apps.benchmark, posenet_tpu_torch.apps.webcam_demo, "
             "posenet_tpu_torch.apps.video_demo, posenet_tpu_torch.apps.streamlit_demo, "
             "posenet_tpu_torch.parallel.mesh, posenet_tpu_torch.parallel.spatial, "
-            "posenet_tpu_torch.parallel.dryrun, bench_torch, benchmark_suite_torch, "
-            "tools.profile_fused_torch, tools.verify_spatial_large_torch, "
+            "posenet_tpu_torch.parallel.dryrun, tools.verify_spatial_large_torch, "
             "tools.train_accuracy_delta_torch; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")

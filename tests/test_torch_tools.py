@@ -1,17 +1,22 @@
-"""The port's facade, benchmark scripts and offline tools, on the CPU at
-small sizes: `bench_torch.py`, `benchmark_suite_torch.py`,
-`tools/profile_fused_torch.py`, `tools/verify_spatial_large_torch.py`,
-`tools/train_accuracy_delta_torch.py` and the three JAX-against-port
-sweeps (`tools/fuzz_*_parity_torch.py`).
+"""The port's facade and offline tools, on the CPU at small sizes:
+`tools/verify_spatial_large_torch.py`, `tools/train_accuracy_delta_torch.py`
+and the three JAX-against-port sweeps (`tools/fuzz_*_parity_torch.py`);
+and what `chip_smoke.py` times on the card, worked out here: each kernel
+launch of the benchmark's cells (`cell_kernel_shapes`), and bounds at the
+yardstick's peaks (`benchmarks/yardstick.py`), with the yardstick's
+reduction of a device trace.
 
-Every script prints the JAX counterpart's keys, plus the device, which is
+Every tool prints the JAX counterpart's keys, plus the device, which is
 `cpu` here: no number here is a device metric. Without `--device cpu` and
 without a card, every entry point raises the card's error before it does
 any work.
 """
 
+import glob
 import json
 import os
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -20,22 +25,25 @@ import torch
 
 import posenet_tpu
 
-import bench_torch
-import benchmark_suite_torch as suite
+import chip_smoke
 import posenet_tpu_torch
-from posenet_tpu_torch.decode import decode_batch
+from benchmarks import harness, yardstick
+from posenet_tpu_torch.config import ModelConfig
 from posenet_tpu_torch.models import mobilenet_v1
-from posenet_tpu_torch.pipeline import infer, normalize
 from tools import (fuzz_backbone_parity_torch, fuzz_decode_parity_torch,
-                   fuzz_ground_truth_parity_torch, profile_fused_torch,
-                   train_accuracy_delta_torch, verify_spatial_large_torch)
+                   fuzz_ground_truth_parity_torch, train_accuracy_delta_torch,
+                   verify_spatial_large_torch)
 
 CPU = torch.device('cpu')
-LATENCY_KEYS = {'config', 'metric', 'p50_ms', 'p99_ms', 'p50_device_ms', 'fps_at_p50'}
-THROUGHPUT_KEYS = {'config', 'metric', 'img_per_s', 'ms_per_batch', 'batch'}
-DECODE_KEYS = {'config', 'metric', 'grid', 'batch', 'ms_per_batch', 'img_per_s'}
-TRAIN_KEYS = {'config', 'devices', 'global_batch', 'ms_per_step', 'img_per_s', 'loss'}
-CPU_KEYS = {'device': 'cpu', 'launches': {'K1': 0, 'K2': 0}}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Each cell of BENCHMARK.json: (batch, frame (H, W), the heads' grid, K2
+# launches and stem launches of one forward); a new cell fails until it
+# is added here.
+CELLS = {
+    'm101-s16.offline-b256': (256, (513, 513), (33, 33), 10, 0),
+    'm101-s8.offline-720p-b32': (32, (721, 1281), (91, 161), 11, 0),
+    'r50-s16.offline-b256': (256, (513, 513), (33, 33), 0, 1),
+}
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -77,115 +85,91 @@ def test_facade_matches_jax():
     assert posenet_tpu_torch.TrainConfig is posenet_tpu_torch.config.TrainConfig
 
 
-def _last_json(out: str) -> dict:
-    lines = [line for line in out.strip().splitlines() if line.startswith('{')]
-    assert len(lines) == 1, out
-    return json.loads(lines[0])
+@pytest.mark.parametrize('cell', chip_smoke.benchmark_cells())
+def test_cell_kernel_shapes(cell):
+    """The launches `chip_smoke.py` times in a cell: in an m101 forward K2
+    on every layer the port's bf16 trunk runs it on (`uses_sepconv`), at
+    the layer's widths, map and dilation rate (at s16 layer 13 at rate 2;
+    at s8 layers 7-12 at rate 2 and 13 at rate 4); the stem once in a
+    ResNet50 forward on the frames; K1 once on the heads' grid with the
+    cell's 128 candidates; all at the cell's batch."""
+    batch, (height, width), grid, n_k2, n_stem = CELLS[cell]
+    launches = chip_smoke.cell_kernel_shapes(cell)
+    assert {s['batch'] for s in launches} == {batch}
+    k2 = [s for s in launches if s['kernel'] == 'K2']
+    stems = [s for s in launches if s['kernel'] == 'stem']
+    (k1,) = [s for s in launches if s['kernel'] == 'K1']
+    assert len(k2) == n_k2 and len(stems) == n_stem and len(launches) == n_k2 + n_stem + 1
+    assert (k1['h'], k1['w']) == grid and k1['decode'].max_candidates == 128
+    if stems:
+        assert (stems[0]['h'], stems[0]['w']) == (height, width)
+        return
+    stride = k1['stride']
+    cfg = ModelConfig(101, stride, compute_dtype=torch.bfloat16)
+    plan = [layer for layer in mobilenet_v1.stride_plan(101, stride)
+            if mobilenet_v1.uses_sepconv(layer, cfg)]
+    assert [(s['layer'], s['c_in'], s['c_out'], s['rate']) for s in k2] == [
+        (layer['block_id'], layer['inp'], layer['outp'], layer['rate']) for layer in plan]
+    assert [(s['h'], s['w']) for s in k2] == [
+        ((height - 1) // layer['cumulative_stride'] + 1,
+         (width - 1) // layer['cumulative_stride'] + 1) for layer in plan]
+    dilated = {s['layer']: s['rate'] for s in k2 if s['rate'] > 1}
+    assert dilated == ({13: 2} if stride == 16 else {7: 2, 8: 2, 9: 2, 10: 2, 11: 2, 12: 2,
+                                                     13: 4})
 
 
-def test_bench_main_on_the_cpu(capsys):
-    """One JSON line with bench.py's keys; the device is the CPU, and the
-    metric says it is no device metric."""
-    result = bench_torch.main(['--device', 'cpu', '--model', '50', '--size', '193',
-                               '--batch', '2', '--iters', '1'])
-    line = _last_json(capsys.readouterr().out)
-    assert line == json.loads(json.dumps(result))
-    assert set(line) == {'metric', 'value', 'unit', 'vs_baseline', 'extra'}
-    assert 'CPU' in line['metric'] and 'not a device metric' in line['metric']
-    extra = line['extra']
-    assert extra['device'] == 'cpu' and extra['launches_per_step'] == {'K1': 0, 'K2': 0}
-    assert len(extra['windows_img_per_s']) == 3 and line['value'] == max(
-        extra['windows_img_per_s'])
-    assert line['vs_baseline'] == line['value'] / 250.0
-    assert extra['poses_per_peaked_image'] >= 1
-    assert {'p50_batch_ms', 'flat_content_img_per_s'} <= set(extra)
+@pytest.mark.parametrize('cell', ['m101-s16.offline-b256', 'm101-s8.offline-720p-b32'])
+def test_k2_bounds_are_the_yardsticks(cell):
+    """The K2 bounds `chip_smoke.py` prints sum, over a cell's launches, to
+    the bound `k2_roofline.offline` divides by."""
+    assert chip_smoke.k2_bound_ms is yardstick.k2_bound_ms
+    launches = [s for s in chip_smoke.cell_kernel_shapes(cell) if s['kernel'] == 'K2']
+    tool = sum(chip_smoke.k2_bound_ms(s['batch'], s['h'], s['w'], s['c_in'], s['c_out'])
+               for s in launches)
+    c = harness.load_cell(cell)
+    batch, height, width = (c.traffic[k] for k in ('batch', 'height', 'width'))
+    want = sum(yardstick.k2_bound_ms(batch, *layer) for layer in yardstick.k2_layers(
+        c.config['model']['model_id'], c.config['model']['output_stride'], height, width))
+    assert tool == pytest.approx(want, rel=1e-12) and tool > 0
 
 
-def test_fused_step_is_forward_then_decode():
-    """`fused_step` is the forward on the frames and `decode_batch` on the
-    peaked heads, chained by hand; `infer` is the forward's heads decoded."""
-    params, frames, peaked, cfg, dcfg = bench_torch.setup(50, 16, 193, 193, 2, CPU)
-    heads, poses = bench_torch.fused_step(params, frames, peaked, cfg, dcfg)
-    ref_heads = mobilenet_v1.forward(params, normalize(frames, cfg.compute_dtype), cfg)
-    assert all(torch.equal(heads[k], ref_heads[k]) for k in ref_heads)
-    ref = decode_batch(*peaked, 16, dcfg)
-    assert all(torch.equal(a, b) for a, b in zip(poses, ref))
-    assert bool(((poses.pose_scores > 0).sum(1) >= 1).all())
-    own = decode_batch(heads['heatmap'], heads['offset'], heads['displacement_fwd'],
-                       heads['displacement_bwd'], 16, dcfg)
-    assert all(torch.equal(a, b) for a, b in zip(infer(params, frames, cfg, dcfg), own))
+def test_stem_bound_from_the_yardsticks_peaks():
+    """The fused stem at b256 513x513: its products at the yardstick's bf16
+    peak take longer than its bytes at its HBM peak."""
+    assert (chip_smoke.HBM_BYTES_S, chip_smoke.BF16_TENSOR_FLOPS) == (
+        yardstick.HBM_BYTES_S, yardstick.BF16_TENSOR_FLOPS)
+    (stem,) = [s for s in chip_smoke.cell_kernel_shapes('r50-s16.offline-b256')
+               if s['kernel'] == 'stem']
+    bound, bound_by = chip_smoke.stem_bound_ms(stem['batch'], stem['h'], stem['w'])
+    assert bound_by == 'operations' and bound == pytest.approx(0.3217, abs=1e-4)
 
 
-def test_peaked_heads_need_eleven_cells():
-    heads = bench_torch.peaked_heads(2, (11, 13), 7, CPU)
-    assert [tuple(t.shape) for t in heads] == [(2, 11, 13, c) for c in (17, 34, 32, 32)]
-    square = bench_torch.peaked_heads(2, 13, 7, CPU)
-    assert all(torch.equal(a, b) for a, b in zip(square, bench_torch.peaked_heads(2, (13, 13),
-                                                                                  7, CPU)))
-    with pytest.raises(ValueError, match='11x11'):
-        bench_torch.peaked_heads(2, 9, 7, CPU)
+@pytest.mark.parametrize('source', sorted(
+    os.path.relpath(p, REPO) for p in glob.glob(os.path.join(REPO, 'posenet_tpu_torch', 'csrc',
+                                                             '*.cu'))))
+def test_every_hand_written_kernel_is_timed(source):
+    """Each CUDA source of the port is a kernel that `chip_smoke.py` times
+    (`TIMERS`) in a cell that launches it."""
+    (kernel,) = [k for k, (_, src, _) in chip_smoke.KERNELS.items() if src == source]
+    assert kernel in chip_smoke.TIMERS
+    assert any(s['kernel'] == kernel for cell in chip_smoke.benchmark_cells()
+               for s in chip_smoke.cell_kernel_shapes(cell))
 
 
-@pytest.mark.parametrize('args,keys', [
-    (('1: m50 s16 single 513x513', 50, 16, 65, 65, 1, 2), LATENCY_KEYS),
-    (('2: m101 s16 batch16 513x513', 50, 16, 65, 65, 2, 2), THROUGHPUT_KEYS),
-    (('3: m101 s8 720p high-accuracy', 50, 8, 33, 65, 2, 1), THROUGHPUT_KEYS),
-    (('4: 720p streaming latency', 50, 16, 33, 65, 1, 2), LATENCY_KEYS),
-])
-def test_suite_inference_configs_on_the_cpu(args, keys, capsys):
-    """Configs 1-4 at a tiny size: the JAX suite's keys, minus the tunnel
-    RTT, plus the device; no device time on the CPU."""
-    latency = keys is LATENCY_KEYS
-    line = suite.run_inference_config(*args, CPU, latency_mode=latency)
-    assert _last_json(capsys.readouterr().out) == line
-    assert set(line) == keys | set(CPU_KEYS)
-    assert {k: line[k] for k in CPU_KEYS} == CPU_KEYS
-    if latency:
-        assert line['p50_device_ms'] is None and line['p50_ms'] > 0
-    else:
-        assert line['img_per_s'] > 0
+def test_chip_smoke_without_a_card_exits_nonzero():
+    if torch.cuda.is_available():
+        pytest.skip('this host has a card: chip_smoke runs there')
+    done = subprocess.run([sys.executable, 'chip_smoke.py', '--only', 'k1'], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode != 0 and 'no CUDA device' in done.stderr, done.stderr[-2000:]
+    assert '"ok": true' not in done.stdout
 
 
-def test_suite_decode_config_on_the_cpu(capsys):
-    """Config 6 through the CLI at its own 136x241 grid."""
-    lines = suite.main(['--device', 'cpu', '--configs', '6', '--iters', '1'])
-    line = _last_json(capsys.readouterr().out)
-    assert lines == [line] and line['grid'] == '136x241' and line['batch'] == 4
-    assert set(line) == DECODE_KEYS | set(CPU_KEYS)
-
-
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_suite_train_configs_on_the_cpu(dtype, capsys):
-    """Configs 5 and 7 at m50 65x65 in this process (world size 1)."""
-    line = suite.run_train_config(1, CPU, dtype=dtype, model_id=50, size=65)
-    assert _last_json(capsys.readouterr().out) == line
-    assert set(line) == TRAIN_KEYS | set(CPU_KEYS)
-    assert line['devices'] == 1 and line['global_batch'] == 2
-    assert line['config'].startswith('5:' if dtype == torch.float32 else '7:')
-    assert np.isfinite(line['loss'])
-
-
-def test_suite_train_config_over_two_ranks(capfd):
-    """`--num_devices 2` on the CPU: two gloo ranks, global batch 4, one
-    line from rank 0."""
-    assert suite.run_train_config(1, CPU, num_devices=2, model_id=50, size=65) is None
-    line = _last_json(capfd.readouterr().out)
-    assert line['devices'] == 2 and line['global_batch'] == 4 and line['device'] == 'cpu'
-
-
-def test_profile_finds_no_device_events_on_the_cpu(tmp_path, capsys):
-    summary = profile_fused_torch.main(['--device', 'cpu', '--model', '50', '--size', '193',
-                                        '--batch', '2', '--iters', '1',
-                                        '--trace_dir', str(tmp_path)])
-    out = capsys.readouterr().out
-    assert 'no device events' in out
-    assert summary['busy_ms'] is None and summary['idle_share'] is None
-    assert summary['device'] == 'cpu' and summary['device_events'] == 0
-
-
-def test_profile_summary_of_a_device_trace(tmp_path):
-    """The busy union, idle share and split by kind of a trace's device
-    events (two overlapping kernels, a copy, and a host op left out)."""
+def test_yardstick_summary_of_a_device_trace(tmp_path):
+    """The yardstick's busy union and device time by kind of a trace's
+    device events (two overlapping kernels, a copy, a conv and an
+    elementwise kernel; a host op left out of both), and the idle gaps
+    filed under the host op around them."""
     events = [
         {'ph': 'X', 'cat': 'kernel', 'name': 'sepconv_kernel<128>', 'ts': 0.0, 'dur': 1000.0},
         {'ph': 'X', 'cat': 'kernel', 'name': 'traverse_kernel', 'ts': 500.0, 'dur': 1000.0},
@@ -196,12 +180,16 @@ def test_profile_summary_of_a_device_trace(tmp_path):
          'ts': 4250.0, 'dur': 250.0},
         {'ph': 'X', 'cat': 'cpu_op', 'name': 'aten::conv2d', 'ts': 0.0, 'dur': 9000.0},
     ]
-    (tmp_path / 'trace.json').write_text(json.dumps({'traceEvents': events}))
-    s = profile_fused_torch.summarize(str(tmp_path), wall_ms=10.0, steps=2)
-    assert s['busy_ms'] == 2.5 and s['idle_share'] == 0.75 and s['busy_ms_per_step'] == 1.25
-    assert s['device_ms_by_kind'] == {'K2 sepconv': 1.0, 'K1 traverse': 1.0, 'copies': 0.5,
-                                      'sort / top-k': 0.0, 'elementwise and other': 0.25,
-                                      'cuDNN convs': 0.25}
+    path = tmp_path / 'trace.json'
+    path.write_text(json.dumps({'traceEvents': events}))
+    s = yardstick.summarize_trace(str(path), window_s=0.01)
+    assert s['device_events'] == 5 and s['window_s'] == 0.01
+    assert s['busy_s'] == {0: pytest.approx(0.0025)}
+    assert s['by_kind_s'] == pytest.approx({'K2 sepconv': 0.001, 'K1 traverse': 0.001,
+                                            'copies': 0.0005, 'cuDNN convs': 0.00025,
+                                            'elementwise and other': 0.00025})
+    assert s['idle_by_label_s'] == pytest.approx(
+        {'no benchmark span / aten::conv2d': 0.002})
 
 
 SWEEPS = {
@@ -248,9 +236,7 @@ def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('this host has a card: the defaults run there')
     workdir = tmp_path / 'w'
-    for main, argv in ((bench_torch.main, []), (suite.main, []),
-                       (profile_fused_torch.main, ['--trace_dir', str(workdir)]),
-                       (verify_spatial_large_torch.main, []),
+    for main, argv in ((verify_spatial_large_torch.main, []),
                        (train_accuracy_delta_torch.main, ['--workdir', str(workdir)])):
         with pytest.raises(RuntimeError, match='CUDA'):
             main(argv)

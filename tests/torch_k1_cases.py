@@ -1,7 +1,8 @@
 """Inputs and graph checks for the tree walk (K1), shared by the tests and
-`chip_smoke.py`: heads laid out as `run_heads` writes them, a walk whose
-first backward hop to the nose lands on a zero score, and the check that
-an exported program feeds K1 views of the heads. Imports nothing of JAX."""
+`chip_smoke.py`: heads laid out as `run_heads` writes them, peaked
+multi-person heads whose poses pass the accept, a walk whose first
+backward hop to the nose lands on a zero score, and the check that an
+exported program feeds K1 views of the heads. Imports nothing of JAX."""
 
 import numpy as np
 import torch
@@ -13,6 +14,31 @@ def head_views(heads):
     joined = torch.cat(heads, dim=-1)
     edges = np.cumsum([0] + [t.shape[-1] for t in heads])
     return [joined[..., a:b] for a, b in zip(edges[:-1], edges[1:])]
+
+
+def peaked_heads(batch: int, grid, seed: int, device):
+    """NHWC peaked heads (heatmap, offsets, dfwd, dbwd) on a grid of
+    `grid` cells (an int: square; or (rows, columns)): 3 gaussian people
+    x 17 keypoints (peak 0.9), uniform offsets and displacements in
+    [-8, 8). Each person's keypoints lie within 4 cells of its centre, so
+    that poses pass min_pose_score=0.25 and the accept does real work;
+    independent random keypoints accept none. The centres lie in
+    [5, n - 5), so each side needs at least 11 cells. Drawn from a CPU
+    generator, so every device gets the same heads."""
+    rows, cols = (grid, grid) if isinstance(grid, int) else grid
+    if min(rows, cols) < 11:
+        raise ValueError(f'peaked heads need a grid of at least 11x11 cells, got '
+                         f'{rows}x{cols}')
+    g = torch.Generator().manual_seed(seed)
+    centre = [torch.randint(5, n - 5, (batch, 3, 1, 1, 1), generator=g) for n in (rows, cols)]
+    ky, kx = [(c + torch.randint(-4, 5, (batch, 3, 17, 1, 1), generator=g)).clamp(0, n - 1)
+              for c, n in zip(centre, (rows, cols))]
+    yy = torch.arange(rows)[:, None]
+    xx = torch.arange(cols)[None, :]
+    blobs = torch.exp(-((yy - ky) ** 2 + (xx - kx) ** 2) / 4.0)   # (B,3,17,R,C)
+    hm = (0.9 * blobs).amax(1).permute(0, 2, 3, 1).contiguous().to(device)
+    flat = (torch.rand((batch, rows, cols, 98), generator=g) * 16 - 8).to(device)
+    return hm, flat[..., :34], flat[..., 34:66], flat[..., 66:98]
 
 
 def nose_zero_heads():

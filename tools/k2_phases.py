@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where K2's time goes on the card: the fused sepconv kernel
 (posenet_tpu_torch/csrc/sepconv.cu) built as it is and with phases cut
-out, each timed by CUDA events per m101 s16 513x513 rate-1 layer at batch
-128 and per dilated layer of the benchmark's cells at the cell's batch.
+out, each timed by CUDA events at each K2 launch of one forward of each
+cell of BENCHMARK.json, at the cell's batch (`chip_smoke.cell_kernel_shapes`).
 
     python3 tools/k2_phases.py     # needs an NVIDIA GPU (sm_90a) and nvcc
 
@@ -17,9 +17,10 @@ flags into posenet_tpu_torch/_build/k2_phases/:
   skeleton_no_weights  the skeleton without the weight copies
 The cut variants compute wrong outputs by design; only `kernel` is
 checked, at rate 1 and at the dilated layers' rates. Prints the card's
-name and power limit, one line per layer (the variants timed in turns,
-forward then backward, mean of both), and the sums over the 9 rate-1 K2
-layers of one m101 s16 forward and over each cell's dilated layers.
+name and power limit, one line per shape of a cell's layers (the variants
+timed in turns, forward then backward, mean of both, beside the layer's
+bound `yardstick.k2_bound_ms`; a shape timed once for all the layers that
+have it), and the sums over each cell's launches.
 Imports nothing of JAX.
 """
 
@@ -37,6 +38,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
+from benchmarks.yardstick import k2_bound_ms  # noqa: E402
 from posenet_tpu_torch.ops import _build, sepconv  # noqa: E402
 
 SOURCE = os.path.join(REPO, 'posenet_tpu_torch', 'csrc', 'sepconv.cu')
@@ -102,11 +104,13 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         fns = {name: bind(lib) for name, lib in zip(VARIANTS, pool.map(build, VARIANTS))}
-    # (label, batch, H, W, C_in, C_out, rate, layers of one forward at this shape)
-    layers = [('m101-s16 rate 1', 128, h, w, c_in, c_out, 1, count)
-              for h, w, c_in, c_out, count in chip_smoke.K2_M101_SHAPES]
-    layers += list(chip_smoke.K2_DILATED_CELL_SHAPES)
-    for i, (_, _, h, w, c_in, c_out, rate, _) in enumerate(layers):
+    layers_of = {}   # (cell, shape) -> the cell's layers of that shape
+    for cell in chip_smoke.benchmark_cells():
+        for s in chip_smoke.cell_kernel_shapes(cell):
+            if s['kernel'] == 'K2':
+                shape = tuple(s[k] for k in ('batch', 'h', 'w', 'c_in', 'c_out', 'rate'))
+                layers_of.setdefault((cell, shape), []).append(s['layer'])
+    for i, (_, (_, h, w, c_in, c_out, rate)) in enumerate(layers_of):
         args = chip_smoke.k2_inputs(2, h, w, c_in, c_out, i, dev)
         ref = sepconv.sepconv_reference(*args, rate).float()
         ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
@@ -115,21 +119,24 @@ def main() -> int:
             raise SystemExit(f'k2_phases: the kernel differs from its plain version at '
                              f'{h}x{w} {c_in}->{c_out} rate {rate}')
     totals = {}
-    for i, (label, batch, h, w, c_in, c_out, rate, count) in enumerate(layers):
-        args = chip_smoke.k2_inputs(batch, h, w, c_in, c_out, 100 + i, dev)
+    for i, ((cell, (b, h, w, c_in, c_out, rate)), layers) in enumerate(layers_of.items()):
+        args = chip_smoke.k2_inputs(b, h, w, c_in, c_out, 100 + i, dev)
         runs = {}
         for name in list(fns) + list(fns)[::-1]:
             runs.setdefault(name, []).append(
                 chip_smoke.cuda_ms(lambda: launch(fns[name], args, rate), 20))
         ms = {name: sum(v) / len(v) for name, v in runs.items()}
-        total = totals.setdefault(label, dict.fromkeys(fns, 0.0))
-        for name in fns:
-            total[name] += count * ms[name]
-        print(f'{label} b{batch} {h}x{w} {c_in}->{c_out} rate {rate} (x{count} a forward): ' +
-              ', '.join(f'{name} {t:.4f} ms' for name, t in ms.items()), flush=True)
+        ms['bound'] = k2_bound_ms(b, h, w, c_in, c_out)
+        total = totals.setdefault(cell, dict.fromkeys(ms, 0.0))
+        for name, t in ms.items():
+            total[name] += len(layers) * t
+        print(f'{cell} layer{"s" * (len(layers) > 1)} {", ".join(map(str, layers))} b{b} '
+              f'{h}x{w} {c_in}->{c_out} rate {rate}: ' +
+              ', '.join(f'{name} {t:.4f} ms a layer' for name, t in ms.items()), flush=True)
         del args
-    for label, total in totals.items():
-        print(f'{label}, the layers of one forward: ' +
+        torch.cuda.empty_cache()
+    for cell, total in totals.items():
+        print(f'{cell}, the K2 launches of one forward: ' +
               ', '.join(f'{name} {t:.4f} ms' for name, t in total.items()))
     return 0
 

@@ -18,6 +18,7 @@ import argparse
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 
@@ -27,7 +28,6 @@ if REPO not in sys.path:
 
 import numpy as np  # noqa: E402
 
-from bench_torch import device_name  # noqa: E402
 from posenet_tpu_torch.config import TrainConfig  # noqa: E402
 from posenet_tpu_torch.models.model_factory import MobileNetV1, resolve_device  # noqa: E402
 from posenet_tpu_torch.training import train_step as ts  # noqa: E402
@@ -36,6 +36,16 @@ from posenet_tpu_torch.training.ground_truth import prepare_ground_truth_data  #
 from posenet_tpu_torch.training.trainer import (evaluate, restore_checkpoint,  # noqa: E402
                                                 train)
 from tools.tpu_lifecycle_soak import synthesize  # noqa: E402
+
+
+def device_name(device) -> str:
+    """The card's `name, power.limit` as nvidia-smi gives them, or 'cpu'."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
 
 
 def parse_args(argv=None):
