@@ -33,7 +33,9 @@ no result:
    s16's layer 13 (33x33 1024->1024 at rate 2) and m101 s8 720p's layers
    7-13 (91x161, 512->512 and 512->1024 at rate 2, 1024->1024 at rate 4)
    at B=2, the rest of the four models' s8 layers at 513x513, a ragged
-   one-block tile at rate 2 and a 5x5 map at rate 4: each element within
+   one-block tile at rate 2 and a 5x5 map at rate 4; then the stride-2
+   layers of the four models at 513x513 (`K2_STRIDED`), a ragged one-block
+   tile, even sides and each stride-2 BN = 16 fallback: each element within
    one bf16 ulp, or 2^-16. K2's
    pointwise alone (identity depthwise) on one 64x128x64 product against
    torch.matmul, to the same tolerance. ResNet50's fused stem against its
@@ -52,7 +54,8 @@ no result:
 5. the main path: PoseNetPipeline over load_model(101, 16, bf16, random
    init) on 8 uint8 513x513 frames, then decode_batch on peaked heads.
    Shapes, finite values, >=1 pose per peaked image, K1's launch count and
-   K2's (10, one forward) over exactly this run. Then the raw-frame path
+   K2's (13, one forward, 3 of them at stride 2) over exactly this run.
+   Then the raw-frame path
    (device_resize_to=(513, 513)) on 16 BGR 720x1280 frames, with its own
    counts: shapes, finite values, equal to preprocess -> forward -> decode
    chained by hand. Then the ResNet50 main path: PoseNetPipeline over
@@ -61,7 +64,7 @@ no result:
 6. serving, m101 s16 bf16 513x513, min_pose_score 0 so that poses come
    out: (a) export a `cuda` artifact at batch sizes (1, 8) with
    `torch.export`, load it, and hold it bitwise to PoseNetPipeline on 8
-   frames, with K2 launched 10 times and K1 at least once by the loaded
+   frames, with K2 launched 13 times and K1 at least once by the loaded
    program, every K2 input a view of the previous layer, no copy, and
    K1's row inputs views of the heads tensor (the scores of its sigmoid);
    (b) PoseServer over the artifact and over LivePipelineBackend on
@@ -81,9 +84,11 @@ no result:
    size), held to its plain version, then timed by CUDA events in turns
    against it and against the library calls it replaces, beside its bound
    at the yardstick's peaks (`benchmarks/yardstick.py`): K2 against the
-   cuDNN depthwise + pointwise pair the trunk ran before (dilated as the
-   layer is, with its bias and ReLU6 passes), bound
-   `yardstick.k2_bound_ms`, the bound `k2_roofline.offline` divides by;
+   cuDNN depthwise + pointwise pair the trunk ran before (dilated or
+   strided as the layer is, with its bias and ReLU6 passes), bound
+   `k2_launch_bound_ms` (at stride 1 `yardstick.k2_bound_ms`, the bound
+   `k2_roofline.offline` divides by; at stride 2 the input read at its
+   own size);
    the stem against cuDNN's fused conv-bias-ReLU + F.max_pool2d, bound
    `stem_bound_ms`; K1 on peaked heads at the cell's grid and decode
    config, by CUDA graph replay (the device alone) and per call by CUDA
@@ -121,13 +126,13 @@ no result:
    max |grad| (the displacement heads, which the loss does not read,
    exactly 0), no K2 launch. (2) The same in bf16, K2 on the card against
    its plain version on the CPU: the heads of the forward within 2e-3,
-   the loss gap and the gradient gap printed, 10 K2 launches. (3) `train()`
+   the loss gap and the gradient gap printed, 13 K2 launches. (3) `train()`
    on the card, float32 (with visual dumps) and bf16, b16, 2 epochs, lr
    1e-4, eval with pose metrics on the same 16 images: finite losses, the
    trunk bitwise unchanged, the heads moved, the eval loss lower after
    than before and the second epoch's train loss (the same 16 images)
    below the first's, the latest checkpoint restored bitwise with its Adam
-   moments; K2 launched 10 times for each bf16 forward (a step, an eval
+   moments; K2 launched 13 times for each bf16 forward (a step, an eval
    loss, an eval decode an epoch), none in float32; K1 once for each eval
    batch and visual dump. (4) `posenet-export-torch --from_checkpoint` of
    the bf16 run's checkpoint to a `cuda` artifact, bitwise equal to
@@ -138,11 +143,11 @@ no result:
    frames over 2 shards and over every visible card, and of an uneven 129
    over 2: per shard its heads against the unsharded forward's rows,
    bitwise or within the bf16 bar 2e-3 (which held is printed), and its
-   poses bitwise wherever its heads are; K2 launched 10 times and K1 once
+   poses bitwise wherever its heads are; K2 launched 13 times and K1 once
    a shard. (b) The spatial partition of one frame, trunk biases + 1.0,
    over 2 and 4 shards, bf16 and float32: the gathered heads against the
    unsharded heads (2e-3; 1e-4 of each head's scale in float32), the
-   poses bitwise where the heads are; K2 10 times a shard, K1 once. (c)
+   poses bitwise where the heads are; K2 13 times a shard, K1 once. (c)
    The data-parallel train step at b16 on phase 9's dataset, world size 1
    over NCCL, against the single-device step, float32 and bf16: loss,
    head gradients and heads after Adam bitwise; then 2 gloo ranks on the
@@ -172,7 +177,7 @@ no result:
    `decode.decode_single` on the card against the CPU, bitwise, one K1
    launch a call, at 33x33 s16 and 91x161 s8;
    `mobilenet_v1.backbone_features` m101 s16 bf16 at 1x257x257 through K2
-   (10 launches) against its plain version on the CPU, within 2e-3 of the
+   (13 launches) against its plain version on the CPU, within 2e-3 of the
    features' scale, max(1, max |feature|), NHWC. (b) `infer` in bf16 at
    m50 s16 1x513x513, m101 s16 16x513x513, m101 s8 4x721x1281 and m101
    s16 1x721x1281, and `decode_batch` on peaked b4 heads at the s8 1080p
@@ -194,7 +199,8 @@ runs no main path, over the run `launches_from` names; `launches_by_path`
 from its plain version; and, where phase 7 ran, `cells`: {cell: phase
 7's sums over the cell's launches}. A cell's sums hold `launches`, `ms`,
 `plain_ms`, `library_ms` (null for K1, which replaces no library call),
-`bound_ms` and `err`; K2's add `dilated_ms`, the stem's `bound_by`, and
+`bound_ms` and `err`; K2's add `dilated_ms`, `strided_ms`,
+`strided_bound_ms` and `strided_library_ms`, the stem's `bound_by`, and
 K1's `call_ms`, `floor_ms` and `dead_ms`; a cell whose launches equal an
 earlier cell's copies its sums and names that cell in `timed_in`. K1's
 `ms` is CUDA graph replay, the device alone, because its per-call time
@@ -240,7 +246,8 @@ import numpy as np
 import torch
 
 from benchmarks import harness
-from benchmarks.yardstick import BF16_TENSOR_FLOPS, HBM_BYTES_S, k2_bound_ms, layer_shapes
+from benchmarks.yardstick import (BF16_TENSOR_FLOPS, F32_FLOPS, HBM_BYTES_S, k2_bound_ms,
+                                  layer_shapes)
 from posenet_tpu_torch import (PoseNetPipeline, decode, decode_single_pose, load_model,
                                native_preprocess)
 from posenet_tpu_torch.apps import full_float32
@@ -304,6 +311,16 @@ K2_M101_DILATED = ((33, 33, 1024, 1024, 2), (91, 161, 512, 512, 2), (91, 161, 51
 K2_OTHER_DILATED = ((65, 65, 256, 256, 2), (65, 65, 384, 384, 2), (65, 65, 512, 512, 2),
                     (65, 65, 512, 1024, 2), (65, 65, 1024, 1024, 4), (9, 9, 512, 512, 2),
                     (5, 5, 1024, 1024, 4), (11, 19, 64, 48, 2))
+# (H_in, W_in, C_in, C_out) of the stride-2 K2 layers of the four models
+# at 513x513: m101's layers 2, 4 and 6 and its s32 layer 12, then m50's and
+# m75's 2, 4 and 6; a ragged one-block tile, even sides (the output's last
+# row and column read one padding row and column), and the BN = 16
+# fallback of each of the three stride-2 configurations.
+K2_STRIDED = ((257, 257, 64, 128), (129, 129, 128, 256), (65, 65, 256, 512),
+              (33, 33, 512, 1024), (257, 257, 32, 64), (129, 129, 64, 128),
+              (65, 65, 128, 256), (257, 257, 48, 96), (129, 129, 96, 192),
+              (65, 65, 192, 384), (9, 9, 512, 1024), (16, 22, 64, 128), (17, 13, 64, 48),
+              (10, 12, 128, 80), (11, 9, 256, 112))
 HEAD_ORDER = ('heatmap', 'offset', 'displacement_fwd', 'displacement_bwd')
 # The module: the converter package exports the function `download` under its name.
 download = importlib.import_module('posenet_tpu_torch.converter.download')
@@ -432,14 +449,22 @@ def k2_inputs(b, h, w, c_in, c_out, seed, device):
     return x, taps, dw_b, pw_w, pw_b
 
 
-def k2_against_plain(args, rate=1):
+def k2_against_plain(args, rate=1, stride=1):
     """(within tolerance, max abs difference, share bitwise equal) of K2
-    against its plain version at dilation `rate`: each element within one
-    bf16 ulp of the plain value, or 2^-16 (tests/test_torch_sepconv.py)."""
-    got = sepconv.sepconv(*args, rate=rate).float()
+    against its plain version at dilation `rate` and `stride`
+    (`k2_close`)."""
+    got = sepconv.sepconv(*args, rate=rate, stride=stride)
     torch.cuda.synchronize()
-    ref = sepconv.sepconv_reference(*args, rate).float()
-    diff = (got - ref).abs()
+    return k2_close(got, args, rate, stride)
+
+
+def k2_close(got, args, rate=1, stride=1):
+    """(within tolerance, max abs difference, share bitwise equal) of the
+    K2 output `got` against the plain version on `args`: each element
+    within one bf16 ulp of the plain value, or 2^-16
+    (tests/test_torch_sepconv.py)."""
+    ref = sepconv.sepconv_reference(*args, rate, stride).float()
+    diff = (got.float() - ref).abs()
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
     ok = bool((diff <= ulp.clamp_min(2.0 ** -16)).all())
     return ok, float(diff.max()), float((diff == 0).float().mean())
@@ -455,12 +480,14 @@ def cell_kernel_shapes(workload: str) -> list:
     `workload` of BENCHMARK.json, at the cell's batch and frame size (its
     configuration's `model` and `decode`, its traffic's `batch`, `height`
     and `width`), as a dict with `kernel` ('K1', 'K2' or 'stem'), `batch`,
-    `h` and `w`. An m101 forward launches K2 on each stride-1 separable
-    layer of `yardstick.layer_shapes` (the layers `k2_roofline.offline`
-    bounds), with the layer's index `layer`, its map `h` x `w`, `c_in`,
-    `c_out` and dilation `rate`; a ResNet50 forward launches the stem once
-    on the `h` x `w` frames; the decode launches K1 once on the heads'
-    grid, with the cell's `stride` and `decode` (a DecodeConfig)."""
+    `h` and `w`. An m101 forward launches K2 on each separable layer of
+    `yardstick.layer_shapes`, with the layer's index `layer`, its output
+    map `h` x `w`, its input map `h_in` x `w_in` (the previous layer's
+    output), `c_in`, `c_out`, `stride` and dilation `rate` (the stride-1
+    launches are the layers `k2_roofline.offline` bounds); a ResNet50
+    forward launches the stem once on the `h` x `w` frames; the decode
+    launches K1 once on the heads' grid, with the cell's `stride` and
+    `decode` (a DecodeConfig)."""
     cell = harness.load_cell(workload)
     model, traffic = cell.config['model'], cell.traffic
     b, height, width, stride = (traffic['batch'], traffic['height'], traffic['width'],
@@ -468,13 +495,32 @@ def cell_kernel_shapes(workload: str) -> list:
     if model.get('architecture') == 'resnet50':
         launches = [{'kernel': 'stem', 'batch': b, 'h': height, 'w': width}]
     else:
+        layers = layer_shapes(model['model_id'], stride, height, width)
         launches = [{'kernel': 'K2', 'batch': b, 'layer': i, 'h': l['h'], 'w': l['w'],
-                     'c_in': l['c_in'], 'c_out': l['c_out'], 'rate': l['rate']}
-                    for i, l in enumerate(layer_shapes(model['model_id'], stride, height, width))
-                    if l['kind'] == 'sep' and l['stride'] == 1]
+                     'h_in': layers[i - 1]['h'], 'w_in': layers[i - 1]['w'], 'c_in': l['c_in'],
+                     'c_out': l['c_out'], 'stride': l['stride'], 'rate': l['rate']}
+                    for i, l in enumerate(layers) if l['kind'] == 'sep']
     return launches + [{'kernel': 'K1', 'batch': b, 'h': (height - 1) // stride + 1,
                         'w': (width - 1) // stride + 1, 'stride': stride,
                         'decode': DecodeConfig(**cell.config['decode'])}]
+
+
+def k2_launch_bound_ms(s: dict) -> float:
+    """The least time of the K2 launch `s` (`cell_kernel_shapes`). At
+    stride 1, `yardstick.k2_bound_ms`, the bound `k2_roofline.offline`
+    divides by. At stride 2, the same count at the yardstick's peaks with
+    the input read at its own size: the `h_in` x `w_in` input read once and
+    the `h` x `w` output written once (bf16, and the weights) at HBM speed,
+    against the pointwise's products on the bf16 tensor cores and the
+    depthwise's 9 taps in float32, whichever is longer."""
+    b, h, w, c_in, c_out = (s[k] for k in ('batch', 'h', 'w', 'c_in', 'c_out'))
+    if s['stride'] == 1:
+        return k2_bound_ms(b, h, w, c_in, c_out)
+    m = b * h * w
+    nbytes = (2 * (b * s['h_in'] * s['w_in'] * c_in + m * c_out)
+              + 2 * 9 * c_in + 4 * c_in + 2 * c_in * c_out + 4 * c_out)
+    return 1e3 * max(nbytes / HBM_BYTES_S, 2 * m * c_in * c_out / BF16_TENSOR_FLOPS,
+                     2 * 9 * m * c_in / F32_FLOPS)
 
 
 def k1_fetches(args, h, w, stride):
@@ -658,14 +704,14 @@ def serving_phase(model, dev):
         out = art(frames8)
         torch.cuda.synchronize()
         k1, k2 = traversal.launches, sepconv.launches
-        check(k2 == 10 and k1 >= 1, f'the loaded artifact launched K1 {k1} and K2 {k2} times')
+        check(k2 == 13 and k1 >= 1, f'the loaded artifact launched K1 {k1} and K2 {k2} times')
         for f, a, b in zip(DecodedPoses._fields, out, ref):
             check(torch.equal(a, b), f'artifact b8 differs from PoseNetPipeline in {f}')
         for b in (1, 8):   # K2 reads the previous layer's output in place
             made_by = [n.args[0].target for n in art._program(b).graph.nodes
                        if n.target == torch.ops.posenet_tpu_torch.sepconv.default]
-            check(made_by == [torch.ops.aten.permute.default] * 10,
-                  f'b{b} program: the K2 inputs are made by {made_by}, not 10 views (permute)')
+            check(made_by == [torch.ops.aten.permute.default] * 13,
+                  f'b{b} program: the K2 inputs are made by {made_by}, not 13 views (permute)')
         k1_inputs = [k1_reads_heads_in_place(art._program(b).graph) for b in (1, 8)]
         check(all(torch.equal(a, b) for a, b in zip(art(frames8[:1]), pipe(frames8[:1]))),
               'artifact b1 differs from PoseNetPipeline')
@@ -842,21 +888,26 @@ def k1_checks(dev) -> float:
 
 
 def k2_checks(dev) -> float:
-    """Phase 3, K2: against its plain version at every K2 shape, rate 1
-    and dilated, the ragged one-block tiles, and the pointwise alone
-    against torch.matmul; returns the max abs difference."""
+    """Phase 3, K2: against its plain version at every K2 shape, rate 1,
+    dilated and stride 2, the ragged one-block tiles, and the pointwise
+    alone against torch.matmul; returns the max abs difference."""
     k2_err = 0.0
-    shapes = [(2, h, w, c_in, c_out, 1) for h, w, c_in, c_out in K2_M101_SHAPES + K2_OTHER_SHAPES]
-    shapes += [(1, 9, 9, 512, 512, 1)]
-    shapes += [(1 if h < 33 else 2, h, w, c_in, c_out, r)
+    shapes = [(2, h, w, c_in, c_out, 1, 1)
+              for h, w, c_in, c_out in K2_M101_SHAPES + K2_OTHER_SHAPES]
+    shapes += [(1, 9, 9, 512, 512, 1, 1)]
+    shapes += [(1 if h < 33 else 2, h, w, c_in, c_out, r, 1)
                for h, w, c_in, c_out, r in K2_M101_DILATED + K2_OTHER_DILATED]
-    for i, (b, h, w, c_in, c_out, rate) in enumerate(shapes):
-        ok, err, equal = k2_against_plain(k2_inputs(b, h, w, c_in, c_out, i, dev), rate)
+    shapes += [(1 if h < 17 else 2, h, w, c_in, c_out, 1, 2)
+               for h, w, c_in, c_out in K2_STRIDED]
+    for i, (b, h, w, c_in, c_out, rate, stride) in enumerate(shapes):
+        ok, err, equal = k2_against_plain(k2_inputs(b, h, w, c_in, c_out, i, dev), rate,
+                                          stride)
         k2_err = max(k2_err, err)
         check(ok, f'K2 differs from its plain version at B={b} {h}x{w} {c_in}->{c_out} '
-                  f'rate {rate} beyond one bf16 ulp (max {err})')
-        print(f'K2 vs plain: B={b} {h}x{w} {c_in}->{c_out} rate {rate}: within one bf16 ulp '
-              f'(or 2^-16), max abs {err:.3g}, share bitwise equal {equal:.6f}', flush=True)
+                  f'rate {rate} stride {stride} beyond one bf16 ulp (max {err})')
+        print(f'K2 vs plain: B={b} {h}x{w} {c_in}->{c_out} rate {rate} stride {stride}: within '
+              f'one bf16 ulp (or 2^-16), max abs {err:.3g}, share bitwise equal {equal:.6f}',
+              flush=True)
     # The pointwise alone: with the centre tap 1, the others and the bias 0,
     # the depthwise of x in [0, 6) is x, so K2 is relu6(x @ pw^T + pw_b).
     x, _, _, pw_w, pw_b = k2_inputs(1, 8, 8, 64, 128, 99, dev)
@@ -877,28 +928,31 @@ def k2_checks(dev) -> float:
 def k2_trunk_launches(dev) -> int:
     """bf16 m101 heads at 2x65x65, s16 and s8, the trunk through K2 on the
     card against its plain version on the CPU; returns K2's launches at
-    s16 (10: layer 13 at rate 2; 11 at s8, layers 7-13 dilated)."""
+    s16 (13, 3 of them at stride 2 and layer 13 at rate 2; 13 at s8, 2 at
+    stride 2 and layers 7-13 dilated)."""
     x65 = torch.from_numpy(np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3))
                            .astype(np.float32))
     launches = {}
-    for stride, want in ((16, 10), (8, 11)):
+    for stride, want, want_strided in ((16, 13, 3), (8, 13, 2)):
         cfg_bf16 = ModelConfig(model_id=101, output_stride=stride, compute_dtype=torch.bfloat16)
         p101 = mobilenet_v1.init_params(torch.Generator().manual_seed(5), cfg_bf16)
         ref_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16), x65,
                                         cfg_bf16)
-        sepconv.launches = 0
+        sepconv.launches = sepconv.strided_launches = 0
         got_bf16 = mobilenet_v1.forward(mobilenet_v1.cast_params(p101, torch.bfloat16, dev),
                                         x65.to(dev), cfg_bf16)
         torch.cuda.synchronize()
         launches[stride] = sepconv.launches
+        strided = sepconv.strided_launches
         gap = max(float((got_bf16[k].cpu() - ref_bf16[k]).abs().max()) for k in ref_bf16)
-        check(launches[stride] == want,
-              f'bf16 m101 s{stride} forward launched K2 {launches[stride]} times, not {want}')
+        check((launches[stride], strided) == (want, want_strided),
+              f'bf16 m101 s{stride} forward launched K2 {launches[stride]} times, '
+              f'{strided} at stride 2, not {want} and {want_strided}')
         check(gap <= 2e-3, f'bf16 heads s{stride}, K2 on CUDA vs plain on CPU: {gap} '
                            f'(limit 2e-3)')
         print(f'bf16 heads m101 s{stride} 2x65x65, trunk through K2 (CUDA) vs its plain '
-              f'version (CPU): within {gap:.3g} (limit 2e-3); K2 launches {launches[stride]}',
-              flush=True)
+              f'version (CPU): within {gap:.3g} (limit 2e-3); K2 launches {launches[stride]}, '
+              f'{strided} at stride 2', flush=True)
     return launches[16]
 
 
@@ -907,31 +961,36 @@ def k2_timing(dev, cell, launches) -> dict:
     held to its plain version at the cell's batch, then timed by CUDA
     events in turns (plain, kernel, cuDNN, cuDNN, kernel, plain) against
     it and against the cuDNN depthwise + pointwise pair, with its bias and
-    ReLU6 passes, that the trunk ran before (dilated as the layer is),
-    beside its bound (`yardstick.k2_bound_ms`). Layers of one shape
-    are timed once, and that time counts once for each of them. Returns the sums over the
-    launches (`dilated_ms`: the kernel's over the dilated layers) and the
-    max abs difference."""
-    sums = dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms', 'dilated_ms'), 0.0)
+    ReLU6 passes, that the trunk ran before (dilated or strided as the
+    layer is), beside its bound (`k2_launch_bound_ms`). Layers of one shape
+    are timed once, and that time counts once for each of them. Returns the
+    sums over the launches (`dilated_ms`: the kernel's over the dilated
+    layers; `strided_ms`, `strided_bound_ms`, `strided_library_ms`: the
+    kernel's, the bound's and the cuDNN pair's over the stride-2 layers)
+    and the max abs difference."""
+    sums = dict.fromkeys(('ms', 'plain_ms', 'library_ms', 'bound_ms', 'dilated_ms',
+                          'strided_ms', 'strided_bound_ms', 'strided_library_ms'), 0.0)
     err_max = 0.0
     layers_of = {}
     for s in launches:
-        shape = tuple(s[k] for k in ('batch', 'h', 'w', 'c_in', 'c_out', 'rate'))
-        layers_of.setdefault(shape, []).append(s['layer'])
-    for (b, h, w, c_in, c_out, rate), layers in layers_of.items():
+        shape = tuple(s[k] for k in ('batch', 'h_in', 'w_in', 'c_in', 'c_out', 'rate', 'stride'))
+        layers_of.setdefault(shape, []).append(s)
+    for (b, h, w, c_in, c_out, rate, stride), same in layers_of.items():
+        layers = [s['layer'] for s in same]
         args = k2_inputs(b, h, w, c_in, c_out, 100 + layers[0], dev)
         x, taps, dw_b, pw_w, pw_b = args
         x_nchw = x.permute(0, 3, 1, 2)
         dw_oihw = taps.t().reshape(c_in, 1, 3, 3).contiguous()
         pw_oihw = pw_w.reshape(c_out, c_in, 1, 1)
-        ok, err, equal = k2_against_plain(args, rate)
+        ok, err, equal = k2_against_plain(args, rate, stride)
         err_max = max(err_max, err)
         what = (f'{cell} layer{"s" * (len(layers) > 1)} {", ".join(map(str, layers))}, '
-                f'B={b} {h}x{w} {c_in}->{c_out} rate {rate}')
+                f'B={b} {h}x{w} {c_in}->{c_out} rate {rate} stride {stride}')
         check(ok, f'K2 differs from its plain version at {what} beyond one bf16 ulp (max {err})')
 
         def pair():
-            y = mobilenet_v1._conv_relu6(x_nchw, dw_oihw, dw_b, dilation=rate, groups=c_in)
+            y = mobilenet_v1._conv_relu6(x_nchw, dw_oihw, dw_b, stride=stride, dilation=rate,
+                                         groups=c_in)
             return mobilenet_v1._conv_relu6(y, pw_oihw, pw_b)
 
         runs = {}
@@ -940,13 +999,16 @@ def k2_timing(dev, cell, launches) -> dict:
                                 ('cudnn', None, 20), ('cudnn', None, 20),
                                 ('kernel', sepconv.sepconv, 20),
                                 ('plain', sepconv.sepconv_reference, 3)):
-            call = pair if fn is None else (lambda fn=fn: fn(*args, rate))
+            call = pair if fn is None else (lambda fn=fn: fn(*args, rate, stride))
             runs.setdefault(name, []).append(cuda_ms(call, iters))
         ms = {k: sum(v) / len(v) for k, v in runs.items()}
-        bound = k2_bound_ms(b, h, w, c_in, c_out)
+        bound = k2_launch_bound_ms(same[0])
         for key, v in (('ms', ms['kernel']), ('plain_ms', ms['plain']),
                        ('library_ms', ms['cudnn']), ('bound_ms', bound),
-                       ('dilated_ms', ms['kernel'] if rate > 1 else 0.0)):
+                       ('dilated_ms', ms['kernel'] if rate > 1 else 0.0),
+                       ('strided_ms', ms['kernel'] if stride > 1 else 0.0),
+                       ('strided_bound_ms', bound if stride > 1 else 0.0),
+                       ('strided_library_ms', ms['cudnn'] if stride > 1 else 0.0)):
             sums[key] += len(layers) * v
         print(f'K2 {what}: kernel {ms["kernel"]:.4f} ms a layer, cuDNN pair {ms["cudnn"]:.4f} ms, '
               f'bound {bound:.4f} ms, kernel / bound {ms["kernel"] / bound:.1f}x, plain '
@@ -956,7 +1018,9 @@ def k2_timing(dev, cell, launches) -> dict:
         del args, x, x_nchw
         torch.cuda.empty_cache()
     print(f'K2 over the {len(launches)} launches of one {cell} forward: kernel '
-          f'{sums["ms"]:.4f} ms (the dilated layers {sums["dilated_ms"]:.4f}), cuDNN pair '
+          f'{sums["ms"]:.4f} ms (the dilated layers {sums["dilated_ms"]:.4f}, the stride-2 '
+          f'layers {sums["strided_ms"]:.4f} against {sums["strided_bound_ms"]:.4f} bound and '
+          f'{sums["strided_library_ms"]:.4f} cuDNN pair), cuDNN pair '
           f'{sums["library_ms"]:.4f} ms, bound {sums["bound_ms"]:.4f} ms, kernel / bound '
           f'{sums["ms"] / sums["bound_ms"]:.1f}x, plain {sums["plain_ms"]:.4f} ms', flush=True)
     return dict(sums, launches=len(launches), err=err_max)
@@ -1527,7 +1591,7 @@ def train_cfgs(dtype, **kw):
 
 
 def k2_per_forward(mcfg) -> int:
-    """The fused block's layers in one forward of `mcfg` (10 for m101 s16 bf16)."""
+    """The fused block's layers in one forward of `mcfg` (13 for m101 s16 bf16)."""
     return sum(mobilenet_v1.uses_sepconv(layer, mcfg)
                for layer in mobilenet_v1.stride_plan(mcfg.model_id, mcfg.output_stride))
 
@@ -2079,13 +2143,13 @@ def multicard() -> tuple:
         traversal.launches = sepconv.launches = 0
         out = art(frames[:8])
         torch.cuda.synchronize()
-        check(traversal.launches == n and sepconv.launches == 10 * n,
+        check(traversal.launches == n and sepconv.launches == 13 * n,
               f'artifact over {n} cards launched K1 {traversal.launches}, K2 '
               f'{sepconv.launches} times')
         for f, a, b in zip(DecodedPoses._fields, out, ref):
             check(torch.equal(a, b), f'artifact over {n} cards differs from the pipeline in {f}')
         print(f'serving: artifact with data_parallel_devices={n}, loaded over {n} cards, b8 '
-              f'bitwise equal to PoseNetPipeline; K1 launches {n}, K2 {10 * n}', flush=True)
+              f'bitwise equal to PoseNetPipeline; K1 launches {n}, K2 {13 * n}', flush=True)
     return k1, k2
 
 
@@ -2343,7 +2407,7 @@ def phase12_single_and_features(dev) -> dict:
     k2 = sepconv.launches
     scale = max(1.0, float(ref.float().abs().max()))
     gap = float((got.cpu().float() - ref.float()).abs().max())
-    check(k2 == 10, f'backbone_features m101 s16 bf16 launched K2 {k2} times')
+    check(k2 == 13, f'backbone_features m101 s16 bf16 launched K2 {k2} times')
     check(got.shape == ref.shape == (1, 17, 17, 1024) and got.dtype == torch.bfloat16
           and got.is_contiguous(), f'backbone_features: {tuple(got.shape)} {got.dtype}')
     check(gap <= 2e-3 * scale, f'backbone_features bf16, K2 on the card vs plain on the CPU: '
@@ -2518,15 +2582,16 @@ def full_run(dev) -> list:
     peaked8 = peaked_heads(8, 33, 7, dev)
     pipe.warmup((513, 513), batch=8)
     torch.cuda.synchronize()
-    traversal.launches = sepconv.launches = 0
+    traversal.launches = sepconv.launches = sepconv.strided_launches = 0
     poses = pipe(frames8)
     peaked_poses = decode_batch(*peaked8, 16, pipe.decode_cfg)
     torch.cuda.synchronize()
     launches = traversal.launches
-    k2_launches = sepconv.launches
+    k2_launches, k2_strided = sepconv.launches, sepconv.strided_launches
     check(launches >= 2, f'K1 launched {launches} times on the main path')
-    check(k2_launches == 10, f'K2 launched {k2_launches} times on the main path (one '
-                             f'm101 s16 forward has 10 stride-1 separable layers)')
+    check((k2_launches, k2_strided) == (13, 3),
+          f'K2 launched {k2_launches} times on the main path, {k2_strided} at stride 2 (one '
+          f'm101 s16 forward has 13 separable layers, 3 of them at stride 2)')
     for out in (poses, peaked_poses):
         check(tuple(out.keypoint_coords.shape) == (8, 10, 17, 2),
               f'keypoint_coords shape {tuple(out.keypoint_coords.shape)}')
@@ -2539,7 +2604,8 @@ def full_run(dev) -> list:
                        'peaked decode CUDA vs CPU')
     print(f'main path: m101 s16 bf16 8x513x513 -> {tuple(poses.keypoint_coords.shape)}, '
           f'finite; peaked decode poses per image {per_image.tolist()} (equal to the '
-          f'CPU decode); K1 launches {launches}, K2 launches {k2_launches}', flush=True)
+          f'CPU decode); K1 launches {launches}, K2 launches {k2_launches} ({k2_strided} at '
+          f'stride 2)', flush=True)
 
     # 5b. the raw-frame path: BGR 720p frames resized on the device
     raw_pipe = PoseNetPipeline(model, device_resize_to=(513, 513))
@@ -2551,7 +2617,7 @@ def full_run(dev) -> list:
     raw_poses = raw_pipe(bgr16)
     torch.cuda.synchronize()
     raw_k1, raw_k2 = traversal.launches, sepconv.launches
-    check(raw_k1 >= 1 and raw_k2 == 10,
+    check(raw_k1 >= 1 and raw_k2 == 13,
           f'raw-frame path launched K1 {raw_k1} and K2 {raw_k2} times')
     check(tuple(raw_poses.keypoint_coords.shape) == (16, 10, 17, 2),
           f'raw keypoint_coords shape {tuple(raw_poses.keypoint_coords.shape)}')

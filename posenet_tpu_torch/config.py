@@ -116,7 +116,7 @@ class TrainConfig:
     seed: int = 0
     # Trunk compute dtype of the training forward. bfloat16 is mixed
     # precision: the FROZEN trunk (heads_only) runs bf16, through the fused
-    # sepconv kernel on its stride-1 layers, while master params,
+    # sepconv kernel on its separable layers, while master params,
     # the heads, the loss and Adam's state stay float32.
     compute_dtype: torch.dtype = torch.float32
 

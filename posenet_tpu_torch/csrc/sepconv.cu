@@ -4,7 +4,8 @@
 // x + dx * rate), dy, dx in -1, 0, 1), zero "same" padding of `rate` on
 // every side, NHWC bf16 in and out. Rate 1 takes the stride-1 layers up to
 // the output stride; rates 2 and 4 the dilated layers past it (m101 s16's
-// layer 13 at rate 2; at s8 layers 7-13, m101's 13 at rate 4).
+// layer 13 at rate 2; at s8 layers 7-13, m101's 13 at rate 4). Stride 2 at
+// rate 1 takes the stride-2 layers (see the note below).
 //
 // Replaces the TPU kernel `sepconv_pallas` (posenet_tpu/ops/pallas/
 // sepconv.py:228, body `_sepconv_kernel` :72). The numerics are that
@@ -42,7 +43,7 @@
 //      keeps 8 channels over a run of consecutive pixels (and from C_in 128
 //      their 9 taps in registers). At rate 1 it slides its 3x3 window along
 //      a row, so that a pixel costs 3 new 16-byte loads, not 9; at rate > 1
-//      each pixel loads its 9 (below). Channels from C_in up to the panel's end
+//      and at stride 2 each pixel loads its 9 (below). Channels from C_in up to the panel's end
 //      are zeros: the C_in 16, 24 and 32 stems take one zero-padded panel,
 //      which costs shared memory and a few products on zeros, not time,
 //      since those layers are bound by memory, not by the tensor cores.
@@ -108,6 +109,29 @@
 // the 9 loads a pixel; at 1024->1024 (BM 64) the weights' L2 traffic, a
 // 2 MB weight matrix read again for every 64 pixels, as at m101 s32's
 // last layer.
+//
+// Stride 2 (layers 2, 4 and 6 of every model up to its output stride, and
+// m101 s32's layer 12). Output pixel (y, x) reads input (2y + dy, 2x + dx),
+// one zero row and column of padding on each side; a block owns BM pixels
+// of the flattened output index, and each pixel's taps are addressed from
+// (image, 2y, 2x) of the input. The epilogues add the biases rounded to
+// bf16 (`load_bias4`), as the conv pair these layers ran as before does.
+// Bound at the cells' shapes, the input read once and the output written
+// once (the input has four times the output's pixels):
+//   b256 257^2  64->128   HBM, 3.25 GB   0.972 ms (m101 s16 layer 2)
+//   b256 129^2 128->256   HBM, 1.64 GB   0.491 ms (layer 4)
+//   b256  65^2 256->512   HBM, 0.84 GB   0.251 ms (layer 6; 73 GFLOP: 0.074 ms)
+//   b32 361x641  64->128  HBM, 1.42 GB   0.425 ms (m101 s8 720p layer 2)
+//   b32 181x321 128->256  HBM, 0.72 GB   0.214 ms (layer 4)
+// A pixel's window shares one column with its neighbour's. Two ways were
+// measured (NVIDIA H100 80GB HBM3, 700 W, CUDA events, variants in turns),
+// ms a layer at those shapes, (a) slide the window two columns, 6 new
+// loads a pixel / (b) load all 9 taps of every pixel and let L1 and L2
+// serve the repeats: 1.9120 / 1.8981, 0.8670 / 0.7785, 0.6450 / 0.6290,
+// 0.8269 / 0.8288, 0.3986 / 0.3599. (b) is kept: as fast or faster at
+// every shape but one, within 0.3% there. The stride-2 instantiations take
+// the rate-1 configurations of their C_in (C_in 32 to 512 in the four
+// models) and BN 128, 96 or 64 (16 for any other C_out).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -332,20 +356,47 @@ __device__ __forceinline__ float relu6(float v) {
   return fminf(fmaxf(v, 0.0f), 6.0f);
 }
 
-template <int BM, int BN, int WG, bool kTapRegs, bool kDilated>
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Four of the depthwise's biases, and two of the pointwise's, as the
+// epilogues add them to their float32 sums: float32 at stride 1, as the
+// TPU kernel; rounded to bf16 at stride 2, as the conv pair those layers
+// ran as before (`F.conv2d` with the bias cast to bf16) adds them.
+template <bool kStrided>
+__device__ __forceinline__ float4 load_bias4(const float* p) {
+  const float4 b = *reinterpret_cast<const float4*>(p);
+  if constexpr (!kStrided) return b;
+  return make_float4(bf16_round(b.x), bf16_round(b.y), bf16_round(b.z), bf16_round(b.w));
+}
+
+template <bool kStrided>
+__device__ __forceinline__ float2 load_bias2(const float* p) {
+  const float2 b = *reinterpret_cast<const float2*>(p);
+  if constexpr (!kStrided) return b;
+  return make_float2(bf16_round(b.x), bf16_round(b.y));
+}
+
+template <int BM, int BN, int WG, bool kTapRegs, bool kDilated, bool kStrided>
 __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
     const __nv_bfloat16* __restrict__ x,    // (B, H, W, C_in)
     const __nv_bfloat16* __restrict__ dw,   // (9, C_in), tap = dy * 3 + dx
     const float* __restrict__ dw_b,         // (C_in,)
     const __nv_bfloat16* __restrict__ pw,   // (C_out, C_in)
     const float* __restrict__ pw_b,         // (C_out,)
-    __nv_bfloat16* __restrict__ out,        // (B, H, W, C_out)
-    int64_t m_total, int h, int w, int c_in, int c_out, int rate_arg) {
+    __nv_bfloat16* __restrict__ out,        // (B, H_out, W_out, C_out)
+    int64_t m_total, int h, int w, int c_in, int c_out, int rate_arg, int h_out_arg,
+    int w_out_arg) {
   // WG warpgroups: all of them compute the depthwise; the first BM / 64
   // run the products and the epilogue, one for each 64 pixels.
   constexpr int kThreads = 128 * WG;
   // The dilation rate: a constant 1 in the rate-1 instantiations.
   const int rate = kDilated ? rate_arg : 1;
+  // The output map: the input's at stride 1; at stride 2 (kStrided)
+  // output pixel (y, x) centres its window on input (2y, 2x).
+  const int h_out = kStrided ? h_out_arg : h;
+  const int w_out = kStrided ? w_out_arg : w;
   constexpr int kSlot = BN * kRow;    // bytes of a ring stage = 64 x BN bf16
   constexpr int kChunks = BN / 8;     // 16-byte chunks of an output row's slice
   // Staging swizzle: chunk XOR (row mod kSwz), within a row of kChunks.
@@ -387,8 +438,8 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
   // pixel's (y, x) advance without a division. A warp's loads are 16-byte
   // vectors over contiguous channels. At rate 1 the 3x3 window slides
   // along a row: 3 new loads a pixel, not 9. At rate > 1 a pixel's taps
-  // share nothing with its neighbour's, and each pixel loads its 9 (see
-  // the note at the top). The loads of a pixel are unconditional, so that
+  // share nothing with its neighbour's, and each pixel loads its 9, as it
+  // does at stride 2 (see the notes at the top). The loads of a pixel are unconditional, so that
   // they are in flight together: a tap off the image reads x[0] and adds
   // zero, as the plain version's zero padding does.
   const int groups = c_in / 8;             // at most kThreads (C_in <= 16 * BM)
@@ -407,14 +458,17 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
 #pragma unroll
       for (int t = 0; t < 9; ++t) taps[t] = *reinterpret_cast<const uint4*>(dw + t * c_in + c);
     }
-    const float4 b0 = *reinterpret_cast<const float4*>(dw_b + c);
-    const float4 b1 = *reinterpret_cast<const float4*>(dw_b + c + 4);
+    const float4 b0 = load_bias4<kStrided>(dw_b + c);
+    const float4 b1 = load_bias4<kStrided>(dw_b + c + 4);
     const float bias[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-    const int64_t hw = static_cast<int64_t>(h) * w;
+    const int64_t hw = static_cast<int64_t>(h_out) * w_out;
     int64_t m = m0 + lane * run;
     const int rem = static_cast<int>(m % hw);
-    int y = rem / w;
-    int xq = rem - y * w;
+    int y = rem / w_out;
+    int xq = rem - y * w_out;
+    // kStrided: image `img`'s input pixel (2y, 2x), the window's centre.
+    int64_t img = kStrided ? m / hw : 0;
+    int64_t centre = kStrided ? (img * h + 2 * y) * w + 2 * xq : 0;
     uint4 xt[9];        // the window, tap t = (dy + 1) * 3 + dx + 1
     bool fresh = true;  // the window holds nothing of this pixel's taps
     for (int p = lane * run; p < p_end; ++p, ++m) {
@@ -432,9 +486,21 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
           const int dy = (t / 3 - 1) * rate;
           const int dx = (t % 3 - 1) * rate;
           if (dx < rate && !fresh) continue;
-          const bool in = y + dy >= 0 && y + dy < h && xq + dx >= 0 && xq + dx < w;
-          xt[t] = *reinterpret_cast<const uint4*>(x + (in ? (m + dy * w + dx) * c_in + c : 0));
-          if (!in) xt[t] = make_uint4(0u, 0u, 0u, 0u);
+          // Two forms of one address, each the one measured fastest for its
+          // instantiations: either form for both cost the stride-1 kernels
+          // up to 6%, or the stride-2 ones up to 12% (PERF.md).
+          if constexpr (kStrided) {
+            const int iy = 2 * y + dy;
+            const int ix = 2 * xq + dx;
+            const bool in = iy >= 0 && iy < h && ix >= 0 && ix < w;
+            xt[t] = *reinterpret_cast<const uint4*>(
+                x + (in ? (centre + dy * w + dx) * c_in + c : 0));
+            if (!in) xt[t] = make_uint4(0u, 0u, 0u, 0u);
+          } else {
+            const bool in = y + dy >= 0 && y + dy < h && xq + dx >= 0 && xq + dx < w;
+            xt[t] = *reinterpret_cast<const uint4*>(x + (in ? (m + dy * w + dx) * c_in + c : 0));
+            if (!in) xt[t] = make_uint4(0u, 0u, 0u, 0u);
+          }
         }
 #pragma unroll
         for (int t = 0; t < 9; ++t) {
@@ -455,12 +521,16 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
       }
       *reinterpret_cast<uint4*>(a_s + (g >> 3) * (BM * kRow) + p * kRow +
                                 (((g & 7) ^ (p & 7)) << 4)) = pack8(acc);
-      const bool row_end = ++xq == w;
+      const bool row_end = ++xq == w_out;
       if (row_end) {
         xq = 0;
-        if (++y == h) y = 0;
+        if (++y == h_out) {
+          y = 0;
+          if constexpr (kStrided) ++img;
+        }
       }
-      fresh = kDilated || row_end;
+      if constexpr (kStrided) centre = row_end ? (img * h + 2 * y) * w : centre + 2;
+      fresh = kDilated || kStrided || row_end;
     }
   }
   // Zeros in the K padding, channels C_in to the last panel's end.
@@ -520,7 +590,7 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
     const int lane = wt % 32;
 #pragma unroll
     for (int q = 0; q < kChunks; ++q) {
-      const float2 bias = *reinterpret_cast<const float2*>(pw_b + n0 + q * 8 + (lane & 3) * 2);
+      const float2 bias = load_bias2<kStrided>(pw_b + n0 + q * 8 + (lane & 3) * 2);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = warp * 16 + (lane >> 2) + half * 8;
@@ -544,9 +614,9 @@ __global__ void __launch_bounds__(128 * WG) sepconv_kernel(
   }
 }
 
-template <int BM, int BN, int WG, bool kTapRegs, bool kDilated>
+template <int BM, int BN, int WG, bool kTapRegs, bool kDilated, bool kStrided>
 cudaError_t launch(const void* x, const void* dw, const void* dw_b, const void* pw,
-                   const void* pw_b, void* out, int64_t m_total, int h, int w,
+                   const void* pw_b, void* out, int b, int h, int w,
                    int c_in, int c_out, int rate, cudaStream_t stream) {
   // Shared memory: the A tile (C_in rounded up to 64) x BM bf16, the ring
   // of 4 x 64 x BN bf16, and 1 KB to align both to 1024 bytes. At most:
@@ -556,35 +626,38 @@ cudaError_t launch(const void* x, const void* dw, const void* dw_b, const void* 
   const int k_panels = (c_in + kBK - 1) / kBK;
   const size_t smem = static_cast<size_t>(k_panels) * BM * kRow +
                       static_cast<size_t>(kStages) * BN * kRow + 1024;
-  auto kernel = sepconv_kernel<BM, BN, WG, kTapRegs, kDilated>;
+  auto kernel = sepconv_kernel<BM, BN, WG, kTapRegs, kDilated, kStrided>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  const int h_out = kStrided ? (h - 1) / 2 + 1 : h;
+  const int w_out = kStrided ? (w - 1) / 2 + 1 : w;
+  const int64_t m_total = static_cast<int64_t>(b) * h_out * w_out;
   const int64_t blocks = (m_total + BM - 1) / BM;
   kernel<<<static_cast<unsigned>(blocks), 128 * WG, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dw),
       static_cast<const float*>(dw_b), static_cast<const __nv_bfloat16*>(pw),
       static_cast<const float*>(pw_b), static_cast<__nv_bfloat16*>(out),
-      m_total, h, w, c_in, c_out, rate);
+      m_total, h, w, c_in, c_out, rate, h_out, w_out);
   return cudaGetLastError();
 }
 
 // Rate 1: BN is the widest of 128, 96, 64, 48, 32, 16 that divides C_out.
 template <int BM, int WG, bool kTapRegs>
 cudaError_t launch_bn(const void* x, const void* dw, const void* dw_b, const void* pw,
-                      const void* pw_b, void* out, int64_t m_total, int h, int w,
+                      const void* pw_b, void* out, int b, int h, int w,
                       int c_in, int c_out, cudaStream_t s) {
   if (c_out % 128 == 0)
-    return launch<BM, 128, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
+    return launch<BM, 128, WG, kTapRegs, false, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
   if (c_out % 96 == 0)
-    return launch<BM, 96, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
+    return launch<BM, 96, WG, kTapRegs, false, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
   if (c_out % 64 == 0)
-    return launch<BM, 64, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
+    return launch<BM, 64, WG, kTapRegs, false, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
   if (c_out % 48 == 0)
-    return launch<BM, 48, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
+    return launch<BM, 48, WG, kTapRegs, false, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
   if (c_out % 32 == 0)
-    return launch<BM, 32, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
-  return launch<BM, 16, WG, kTapRegs, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, 1, s);
+    return launch<BM, 32, WG, kTapRegs, false, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
+  return launch<BM, 16, WG, kTapRegs, false, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
 }
 
 // Rate > 1: the dilated layers of the four models have C_out 256, 384, 512
@@ -592,44 +665,71 @@ cudaError_t launch_bn(const void* x, const void* dw, const void* dw_b, const voi
 // Four instantiations in all, so that the first build stays short.
 template <int BM, int WG>
 cudaError_t launch_dilated(const void* x, const void* dw, const void* dw_b, const void* pw,
-                           const void* pw_b, void* out, int64_t m_total, int h, int w,
+                           const void* pw_b, void* out, int b, int h, int w,
                            int c_in, int c_out, int rate, cudaStream_t s) {
   if (c_out % 128 == 0)
-    return launch<BM, 128, WG, true, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, rate, s);
-  return launch<BM, 16, WG, true, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, rate, s);
+    return launch<BM, 128, WG, true, true, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, rate, s);
+  return launch<BM, 16, WG, true, true, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, rate, s);
+}
+
+// Stride 2: the stride-2 layers of the four models have C_out 64, 96, 128
+// or 192 below C_in 128 and a multiple of 128 from it, so BN is 128, 96 or
+// 64; any other C_out takes BN = 16, right but slower. Eight instantiations.
+template <int WG, bool kTapRegs>
+cudaError_t launch_strided(const void* x, const void* dw, const void* dw_b, const void* pw,
+                           const void* pw_b, void* out, int b, int h, int w,
+                           int c_in, int c_out, cudaStream_t s) {
+  if (c_out % 128 == 0)
+    return launch<128, 128, WG, kTapRegs, false, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
+  if constexpr (!kTapRegs) {
+    if (c_out % 96 == 0)
+      return launch<128, 96, WG, false, false, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
+    if (c_out % 64 == 0)
+      return launch<128, 64, WG, false, false, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
+  }
+  return launch<128, 16, WG, kTapRegs, false, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, 1, s);
 }
 
 }  // namespace
 
 // Launches the block on `stream` and returns a cudaError_t (0 when the
 // launch was accepted). Pointers are device pointers to contiguous,
-// 16-byte aligned tensors; C_in % 8 == 0 and C_out % 16 == 0, both at most
-// 1024, rate >= 1 (the wrapper checks all of it). Rate 1: BM = 128 up to
+// 16-byte aligned tensors; x is (b, h, w, C_in), the output (b, (h - 1) /
+// stride + 1, (w - 1) / stride + 1, C_out); C_in % 8 == 0 and C_out % 16 ==
+// 0, both at most 1024, rate >= 1, stride 1 or 2, stride 2 only at rate 1
+// and C_in <= 512 (the wrapper checks all of it). Rate 1: BM = 128 up to
 // C_in 512, else 64; WG = 4 warpgroups at BM 128 from C_in 256, else 2;
 // the taps in registers from C_in 128. Rate > 1 (the dilated layers, all
 // of C_in 256 to 1024 in the four models): BM 128 and WG 4 up to C_in 512,
-// else BM 64 and WG 2, the taps in registers.
+// else BM 64 and WG 2, the taps in registers. Stride 2 (every stride-2
+// layer of the four models has C_in 32 to 512): the rate-1 configurations.
 extern "C" int posenet_sepconv(
     const void* x, const void* dw, const void* dw_b, const void* pw,
     const void* pw_b, void* out, int b, int h, int w, int c_in, int c_out,
-    int rate, void* stream) {
+    int rate, int stride, void* stream) {
   if (c_in <= 0 || c_in > kMaxChannels || c_in % 8 || c_out <= 0 ||
-      c_out > kMaxChannels || c_out % 16 || rate < 1)
+      c_out > kMaxChannels || c_out % 16 || rate < 1 || stride < 1 || stride > 2 ||
+      (stride == 2 && (rate > 1 || c_in > 512)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t m_total = static_cast<int64_t>(b) * h * w;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (rate > 1 && c_in > 512)
-    err = launch_dilated<64, 2>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, rate, s);
+  if (stride == 2 && c_in >= 256)
+    err = launch_strided<4, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, s);
+  else if (stride == 2 && c_in >= 128)
+    err = launch_strided<2, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, s);
+  else if (stride == 2)
+    err = launch_strided<2, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, s);
+  else if (rate > 1 && c_in > 512)
+    err = launch_dilated<64, 2>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, rate, s);
   else if (rate > 1)
-    err = launch_dilated<128, 4>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, rate, s);
+    err = launch_dilated<128, 4>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, rate, s);
   else if (c_in > 512)
-    err = launch_bn<64, 2, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    err = launch_bn<64, 2, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, s);
   else if (c_in >= 256)
-    err = launch_bn<128, 4, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    err = launch_bn<128, 4, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, s);
   else if (c_in >= 128)
-    err = launch_bn<128, 2, true>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    err = launch_bn<128, 2, true>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, s);
   else
-    err = launch_bn<128, 2, false>(x, dw, dw_b, pw, pw_b, out, m_total, h, w, c_in, c_out, s);
+    err = launch_bn<128, 2, false>(x, dw, dw_b, pw, pw_b, out, b, h, w, c_in, c_out, s);
   return static_cast<int>(err);
 }

@@ -12,14 +12,15 @@ Two modes, set by `ModelConfig.compute_dtype`:
   (`torch.backends.cudnn.allow_tf32` and `torch.backends.cuda.matmul.allow_tf32`)
   or cuDNN rounds the convolutions' inputs to TF32.
 - bfloat16, the inference mode: bf16 activations and kernels between
-  layers. Every separable layer the stride plan leaves at stride 1 runs
-  as one fused block at the layer's dilation rate (`ops.sepconv`: the CUDA
-  kernel K2 on the card, its plain version on the CPU), which accumulates
-  in float32 and adds its biases in float32, as the TPU kernel it
-  replaces does: the rate-1 layers and the dilated ones (rate 2, and 4 at
-  m101 s8's last layer) alike. The other layers (conv0 and the stride-2
-  ones) run cuDNN convs with each bias rounded to bf16 before it is
-  added, as the JAX package's trunk does.
+  layers. Every separable layer runs as one fused block at the layer's
+  stride and dilation rate (`ops.sepconv`: the CUDA kernel K2 on the card,
+  its plain version on the CPU), which accumulates in float32. At stride 1
+  (the rate-1 layers and the dilated ones, rate 2, and 4 at m101 s8's
+  last layer) it adds its biases in float32, as the TPU kernel it
+  replaces does; at stride 2 it adds them rounded to bf16, as the conv
+  pair these layers ran as before does. conv0 runs a cuDNN conv with its
+  bias rounded to bf16 before it is added, as the JAX package's trunk
+  does.
 The heads accumulate in float32 in both modes.
 """
 
@@ -206,9 +207,9 @@ def _conv_relu6(x, w, b, *, stride=1, dilation=1, groups=1, pad_rows=True):
     return F.relu6(y)
 
 
-def _sepconv_relu6(x, p, rate):
-    """One stride-1 separable layer at dilation `rate` as the fused block,
-    on the NHWC memory of the channels_last tensor `x`; returns
+def _sepconv_relu6(x, p, rate, stride=1):
+    """One separable layer at dilation `rate` and `stride` as the fused
+    block, on the NHWC memory of the channels_last tensor `x`; returns
     channels_last."""
     c_in = x.shape[1]
     taps = p.get('dw_taps')
@@ -216,15 +217,14 @@ def _sepconv_relu6(x, p, rate):
         taps = sepconv.pack_depthwise(p['dw_w'])
     pw_w = p['pw_w'].to(torch.bfloat16).reshape(-1, c_in)
     y = sepconv.sepconv(x.permute(0, 2, 3, 1), taps, p['dw_b'].float(), pw_w,
-                        p['pw_b'].float(), rate)
+                        p['pw_b'].float(), rate, stride)
     return y.permute(0, 3, 1, 2)
 
 
 def uses_sepconv(layer: Dict[str, Any], cfg: ModelConfig) -> bool:
     """Whether the trunk runs this `stride_plan` layer as the fused block:
-    a bf16 separable layer at stride 1, at any dilation rate."""
-    return (cfg.compute_dtype == torch.bfloat16 and layer['conv_type'] == 'sep'
-            and layer['stride'] == 1)
+    a bf16 separable layer, at any stride and dilation rate."""
+    return cfg.compute_dtype == torch.bfloat16 and layer['conv_type'] == 'sep'
 
 
 def run_layer(layer: Dict[str, Any], p: Dict[str, Any], x: torch.Tensor,
@@ -235,12 +235,19 @@ def run_layer(layer: Dict[str, Any], p: Dict[str, Any], x: torch.Tensor,
     read, rows beyond the image as zeros (a slab of a height-sharded
     image, `parallel.spatial`), so that no row is padded: the convs pad
     the width only, and the fused block, which pads every side by the
-    layer's rate, has its first and last `rate` output rows cut."""
+    layer's rate, has its first and last `rate` output rows cut. At stride
+    2 the slab's first row is the one above its first output row's centre,
+    so the windows centre on its odd rows: one zero row above it moves them
+    to the even rows the fused block centres on, and the output row that
+    row adds is cut."""
     s, r = layer['stride'], layer['rate']
     if layer['conv_type'] == 'input':
         return _conv_relu6(x, p['w'], p['b'], stride=s, dilation=r, pad_rows=not row_halo)
     if uses_sepconv(layer, cfg):
-        y = _sepconv_relu6(x, p, r)
+        if row_halo and s > 1:
+            x = F.pad(x, (0, 0, 1, 0)).contiguous(memory_format=torch.channels_last)
+            return _sepconv_relu6(x, p, r, s)[:, :, 1:]
+        y = _sepconv_relu6(x, p, r, s)
         return y[:, :, r:-r] if row_halo else y
     x = _conv_relu6(x, p['dw_w'], p['dw_b'], stride=s, dilation=r, groups=x.shape[1],
                     pad_rows=not row_halo)
@@ -264,7 +271,7 @@ def backbone_features(params: Dict[str, Any], x_nhwc: torch.Tensor,
     -> (B, R, R', C) NHWC features in the compute dtype, as the JAX
     package's `backbone_features` returns them; a view of `run_trunk`'s
     channels_last output, whose memory is NHWC. The bf16 trunk runs K2 on
-    its stride-1 layers as `forward` does. JAX's `precision=` has
+    its separable layers as `forward` does. JAX's `precision=` has
     no counterpart: float32 parity on the card needs TF32 off, as
     `apps.full_float32` sets it."""
     return run_trunk(params, x_nhwc, cfg).permute(0, 2, 3, 1)

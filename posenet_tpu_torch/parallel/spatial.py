@@ -14,8 +14,9 @@ so no shard ever computes a row outside the image and no pad row needs
 masking. The convs then pad the width only (`mobilenet_v1.run_layer(...,
 row_halo=True)`); the fused sepconv block (K2), which pads every side of
 what it is given by the layer's rate, runs on the slab with its
-`rate`-row halo and has its first and last `rate` output rows cut. The
-1x1 convs and the heads need no halo.
+`rate`-row halo and has its first and last `rate` output rows cut (at
+stride 2, one zero row above the slab and the one output row it adds).
+The 1x1 convs and the heads need no halo.
 
 The heads' 115 channels are gathered onto the first device as one tensor
 and split there (`mobilenet_v1.split_heads`), so that the decode, K1

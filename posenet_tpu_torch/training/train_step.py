@@ -8,7 +8,7 @@ never updated at all (the JAX package's `optax.masked` passes the trunk's
 zero gradients through as updates).
 
 Mixed precision (`compute_dtype=bfloat16`) needs `heads_only`: the frozen
-trunk runs in bf16, through the fused sepconv kernel on its stride-1
+trunk runs in bf16, through the fused sepconv kernel on its separable
 layers, cast once from the float32 master tensors
 (`compute_params`); the heads, the loss and Adam's state stay float32.
 

@@ -271,10 +271,12 @@ def test_spatial_partition_matches_unsharded_and_jax(inflated, n):
 
 @pytest.mark.parametrize('stride', [16, 8])
 def test_spatial_bf16_trunk_runs_the_fused_block_on_slabs(inflated, monkeypatch, stride):
-    """bf16: every stride-1 layer runs the fused block (K2's plain version
-    here) at its rate on each shard's slab, its `rate` halo rows cut on
-    each side, and the heads stay within the bf16 bar of the unsharded
-    forward's. At s8 layers 7-13 run at rate 2."""
+    """bf16: every separable layer runs the fused block (K2's plain version
+    here) at its rate and stride on each shard's slab: at stride 1 its
+    `rate` halo rows cut on each side, at stride 2 with one zero row above
+    the slab and the output row it adds cut; the heads stay within the
+    bf16 bar of the unsharded forward's. At s16 layers 2, 4 and 6 run at
+    stride 2, at s8 layers 2 and 4, and 7-13 at rate 2."""
     cfg = ModelConfig(model_id=50, output_stride=stride, compute_dtype=torch.bfloat16)
     params = mobilenet_v1.cast_params(inflated[1], torch.bfloat16)
     x = normalize(torch.from_numpy(np.random.RandomState(8).randint(
@@ -283,23 +285,26 @@ def test_spatial_bf16_trunk_runs_the_fused_block_on_slabs(inflated, monkeypatch,
     calls = []
     call = sepconv.sepconv
     monkeypatch.setattr(sepconv, 'sepconv',
-                        lambda *a: calls.append((a[0].shape, a[5])) or call(*a))
+                        lambda *a: calls.append((a[0].shape, a[5], a[6])) or call(*a))
     devices = [torch.device('cpu')] * 3
     got = spatial.forward([params] * 3, x, cfg, devices)
     assert got.shape == ref.shape and got.is_contiguous()
     assert float((got - ref).abs().max()) <= 2e-3
-    # 10 fused layers at m50 s16 (all rate 1) and 11 at s8 (7 at rate 2),
-    # 3 slabs each, every slab 2 * rate rows taller than its shard's
-    # output rows
+    # 13 fused layers at m50 s16 and s8, 3 slabs each; a stride-1 slab
+    # 2 * rate rows taller than its shard's output rows, a stride-2 one
+    # (with the zero row above it) twice their count and 2 rows
     plan = [l for l in mobilenet_v1.stride_plan(50, stride) if mobilenet_v1.uses_sepconv(l, cfg)]
-    assert len(calls) == 3 * len(plan) == {16: 30, 8: 33}[stride]
+    assert len(calls) == 3 * len(plan) == 39
     assert calls[0][0][1] == spatial.split_rows(49, 3)[0][1] + 2
     for i, layer in enumerate(plan):
         rows = spatial.split_rows((97 - 1) // layer['cumulative_stride'] + 1, 3)
-        for (shape, rate), (a, b) in zip(calls[3 * i:3 * i + 3], rows):
-            assert rate == layer['rate'] and shape[1] == b - a + 2 * rate
-    assert [l['rate'] for l in plan] == [1] * (10 if stride == 16 else 4) + [2] * (
+        for (shape, rate, s), (a, b) in zip(calls[3 * i:3 * i + 3], rows):
+            assert (rate, s) == (layer['rate'], layer['stride'])
+            assert shape[1] == (b - a + 2 * rate if s == 1 else 2 * (b - a) + 2)
+    assert [l['rate'] for l in plan] == [1] * (13 if stride == 16 else 6) + [2] * (
         0 if stride == 16 else 7)
+    assert [l['block_id'] for l in plan if l['stride'] == 2] == (
+        [2, 4, 6] if stride == 16 else [2, 4])
 
 
 # --- data-parallel serving ------------------------------------------------

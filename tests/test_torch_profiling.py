@@ -219,13 +219,13 @@ def test_the_decode_device_time_holds_k1(cuda, tmp_path):
 @pytest.mark.cuda
 def test_a_cuda_export_under_the_profiler_launches_k1_and_k2(cuda, tmp_path):
     """A bf16 m101 s16 artifact exported on the card under an active
-    profiler holds no profiler op, and its program launches K2 on the 10
-    stride-1 layers and K1 once, as the artifact does without the profiler."""
+    profiler holds no profiler op, and its program launches K2 on the 13
+    separable layers and K1 once, as the artifact does without the profiler."""
     model = MobileNetV1(101, 16, compute_dtype=torch.bfloat16, seed=1, device=cuda)
     path = str(tmp_path / 'm101.posenet')
     (targets,) = _export(model, path, ('cuda',), traced=True, batch=2, hw=(65, 65))
     assert _no_profiler_op(targets)
-    assert targets.count('posenet_tpu_torch.sepconv.default') == 10
+    assert targets.count('posenet_tpu_torch.sepconv.default') == 13
     assert targets.count('posenet_tpu_torch.traverse_all_candidates.default') == 1
     frames = np.random.RandomState(1).randint(0, 256, (2, 65, 65, 3), np.uint8)
     art = load_serving_artifact(path)
@@ -234,4 +234,4 @@ def test_a_cuda_export_under_the_profiler_launches_k1_and_k2(cuda, tmp_path):
     k1, k2 = traversal.launches, sepconv.launches
     art(frames)
     torch.cuda.synchronize()
-    assert (traversal.launches - k1, sepconv.launches - k2) == (1, 10)
+    assert (traversal.launches - k1, sepconv.launches - k2) == (1, 13)

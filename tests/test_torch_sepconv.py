@@ -15,7 +15,11 @@ elements differ, by one ulp (share bitwise equal 0.999986); 128->256, 4 of
 557568 differ, one by 1.2e-7 absolute (4 ulp of 7.4e-6), the others by one
 ulp (0.999993 equal). Against the f32-accumulated XLA conv pair at C_in 16,
 24 and 32: bitwise equal; at rates 2 and 4 (`rhs_dilation`), within the
-same tolerance.
+same tolerance. At stride 2 the biases are rounded to bf16 before they
+are added, as the conv pair `_conv_relu6` (`F.conv2d` with its bias cast
+to bf16) does on the CPU: against that pair within the same tolerance at
+every stride-2 layer's widths (bitwise equal at C_in 32-96 and mostly
+above, where the CPU's pointwise sums in another order).
 
 The tests marked `cuda` hold the CUDA kernel to its plain version on a
 card, with the same tolerance; they skip without one.
@@ -24,6 +28,7 @@ card, with the same tolerance; they skip without one.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 from jax import lax
@@ -132,6 +137,79 @@ def test_dilated_reference_matches_xla_pair(h, w, rate, c_in, c_out):
     assert not torch.equal(plain, ours)
 
 
+# (C_in, C_out) of every stride-2 separable layer of m50, m75 and m101:
+# layers 2, 4 and 6 of each, and m101 s32's layer 12.
+STRIDED_LAYERS = [(32, 64), (48, 96), (64, 128), (96, 192), (128, 256), (192, 384),
+                  (256, 512), (512, 1024)]
+
+
+@pytest.mark.parametrize("h,w", [(9, 13), (17, 17)])
+@pytest.mark.parametrize("c_in,c_out", STRIDED_LAYERS)
+def test_strided_reference_matches_conv_pair(h, w, c_in, c_out):
+    """The plain version at stride 2 against the trunk's conv pair, two
+    `_conv_relu6` calls in bf16 on the CPU at torch-style padding 1: the
+    output map ((H - 1) // 2 + 1, (W - 1) // 2 + 1), each element within
+    one bf16 ulp."""
+    args = _torch_args(*_inputs(9, 2, h, w, c_in, c_out))
+    ours = sepconv.sepconv(*args, stride=2)
+    side = ((h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    assert ours.dtype == torch.bfloat16 and tuple(ours.shape) == (2, *side, c_out)
+    assert ours.is_contiguous()
+    x, dw, dw_b, pw, pw_b = args
+    pair = mobilenet_v1._conv_relu6(
+        mobilenet_v1._conv_relu6(x.permute(0, 3, 1, 2), dw.t().reshape(c_in, 1, 3, 3), dw_b,
+                                 stride=2, groups=c_in), pw[:, :, None, None], pw_b)
+    pair = pair.permute(0, 2, 3, 1)
+    assert pair.dtype == torch.bfloat16 and pair.shape == ours.shape
+    assert_bf16_close(ours.float().numpy(), pair.float().numpy())
+
+
+def test_strided_reference_rounds_the_biases_to_bf16():
+    """At stride 2 each float32 sum takes its bias rounded to bf16, then
+    one rounding to bf16; at stride 1 the float32 bias. With the centre
+    tap 1 and the others 0 the depthwise of x is x's even pixels, so the
+    output can be written down; the float32 biases give another one on
+    these inputs."""
+    x, _, dw_b, pw_oi, pw_b = _torch_args(*_inputs(10, 1, 9, 9, 64, 128))
+    taps = torch.zeros((9, 64), dtype=torch.bfloat16)
+    taps[4] = 1
+    got = sepconv.sepconv(x, taps, dw_b, pw_oi, pw_b, stride=2)
+    mid = (x[:, ::2, ::2, :].float() + dw_b.to(torch.bfloat16).float()).clamp(0, 6)
+    y = mid.to(torch.bfloat16).float().reshape(-1, 64) @ pw_oi.float().t()
+    want = (y + pw_b.to(torch.bfloat16).float()).clamp(0, 6).to(torch.bfloat16)
+    assert torch.equal(got, want.reshape(got.shape))
+    f32_bias = (y + pw_b).clamp(0, 6).to(torch.bfloat16).reshape(got.shape)
+    assert not torch.equal(got, f32_bias)
+
+
+@pytest.mark.parametrize("a,b", [(0, 2), (2, 5), (5, 6)])
+def test_stride2_layer_on_a_slab_is_its_rows_of_the_image(a, b):
+    """A stride-2 layer on a halo slab (`row_halo`: the input rows its
+    output rows [a, b) read, rows beyond the image as zeros) runs the fused
+    block at stride 2 and gives exactly those rows of the whole image's
+    output: the first and the last shard and one between, on a map whose
+    last output row reads a padding row."""
+    cfg = ModelConfig(model_id=50, output_stride=16, compute_dtype=torch.bfloat16)
+    layer = mobilenet_v1.stride_plan(50, 16)[2]
+    assert layer['stride'] == 2 and layer['inp'] == 32
+    p = mobilenet_v1.cast_params(mobilenet_v1.init_params(
+        torch.Generator().manual_seed(3), cfg), torch.bfloat16)['backbone'][2]
+    x = torch.rand((1, 11, 9, 32)).mul(6).to(torch.bfloat16).permute(0, 3, 1, 2)
+    whole = mobilenet_v1.run_layer(layer, p, x, cfg)
+    assert tuple(whole.shape) == (1, 64, 6, 5)
+    lo, hi = 2 * a - 1, 2 * b
+    slab = torch.zeros((1, 32, hi - lo, 9), dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    slab[:, :, max(lo, 0) - lo:min(hi, 11) - lo] = x[:, :, max(lo, 0):min(hi, 11)]
+    calls = []
+    call = sepconv.sepconv
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sepconv, 'sepconv', lambda *args: calls.append(args[6]) or call(*args))
+        part = mobilenet_v1.run_layer(layer, p, slab, cfg, row_halo=True)
+    assert calls == [2]
+    assert torch.equal(part, whole[:, :, a:b])
+
+
 def test_pack_depthwise_is_tap_major():
     dw = torch.arange(5 * 9, dtype=torch.float32).reshape(5, 1, 3, 3)
     taps = sepconv.pack_depthwise(dw)
@@ -145,35 +223,40 @@ def test_pack_depthwise_is_tap_major():
 @pytest.mark.parametrize("model_id", [50, 75, 101])
 @pytest.mark.parametrize("stride", [8, 16, 32])
 def test_trunk_runs_k2_on_stride1_rate1_layers(monkeypatch, model_id, stride):
-    """A bf16 forward calls the fused block once per separable layer the
-    stride plan leaves at stride 1, at any dilation rate: 11 at s8 (layers
-    1, 3, 5 and 6 at rate 1, 7-13 dilated); 10 at s16 (m101: layer 13 at
-    rate 2); at s32 10 for m50 and m75 and 9 for m101, whose layer 12 has
-    stride 2. On the CPU each call is the plain version, counted here as
-    the kernel's `launches` counts on the card."""
+    """A bf16 forward calls the fused block once per separable layer, 13
+    for each model at every output stride, at the layer's stride and
+    dilation rate: at s8 layers 2 and 4 at stride 2, 7-13 dilated (m101's
+    13 at rate 4); at s16 layers 2, 4 and 6 at stride 2 (m101: layer 13 at
+    rate 2); at s32 layers 2, 4 and 6 at stride 2, and m101's layer 12
+    too. On the CPU each call is the plain version, counted here as the
+    kernel's `launches` counts on the card."""
     calls = []
     plain = sepconv.sepconv_reference
     monkeypatch.setattr(sepconv, 'sepconv_reference',
-                        lambda *a: calls.append((a[0].shape, a[5])) or plain(*a))
-    expected = {8: 11, 16: 10, 32: 9 if model_id == 101 else 10}
+                        lambda *a: calls.append((a[0].shape, a[5], a[6])) or plain(*a))
     cfg = ModelConfig(model_id=model_id, output_stride=stride, compute_dtype=torch.bfloat16)
     plan = mobilenet_v1.stride_plan(model_id, stride)
-    assert sum(mobilenet_v1.uses_sepconv(l, cfg) for l in plan) == expected[stride]
+    assert sum(mobilenet_v1.uses_sepconv(l, cfg) for l in plan) == 13
     params = mobilenet_v1.cast_params(
         mobilenet_v1.init_params(torch.Generator().manual_seed(stride), cfg), torch.bfloat16)
     x = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (1, 33, 33, 3))
                          .astype(np.float32))
     heads = mobilenet_v1.forward(params, x, cfg)
-    assert len(calls) == expected[stride]
+    assert len(calls) == 13
     assert all(torch.isfinite(h).all() for h in heads.values())
-    rates = [r for _, r in calls]
-    if model_id == 101 and stride == 16:   # layers 1, 3, 5, 7-12, 13 at rate 2
-        assert [s[-1] for s, _ in calls] == [32, 128, 256] + [512] * 6 + [1024]
-        assert rates == [1] * 9 + [2]
-    if stride == 8:                        # layers 1, 3, 5, 6, then 7-13 dilated
-        assert rates == [1] * 4 + [2] * 6 + [4 if model_id == 101 else 2]
+    rates = [r for _, r, _ in calls]
+    strides = [s for _, _, s in calls]
+    strided = {8: [2, 4], 16: [2, 4, 6],
+               32: [2, 4, 6, 12] if model_id == 101 else [2, 4, 6]}[stride]
+    assert strides == [2 if layer in strided else 1 for layer in range(1, 14)]
+    if model_id == 101 and stride == 16:   # layers 1-12, 13 at rate 2
+        assert [s[-1] for s, _, _ in calls] == [32, 64, 128, 128, 256, 256] + [512] * 6 + [1024]
+        assert [s[1] for s, _, _ in calls] == [17, 17, 9, 9, 5, 5] + [3] * 7
+        assert rates == [1] * 12 + [2]
+    if stride == 8:                        # layers 1-6, then 7-13 dilated
+        assert rates == [1] * 6 + [2] * 6 + [4 if model_id == 101 else 2]
     if stride == 32:
-        assert rates == [1] * expected[stride]
+        assert rates == [1] * 13
 
 
 def test_f32_trunk_and_uncast_params_route(monkeypatch):
@@ -194,20 +277,31 @@ def test_f32_trunk_and_uncast_params_route(monkeypatch):
     cfg16 = ModelConfig(model_id=50, output_stride=16, compute_dtype=torch.bfloat16)
     uncast = mobilenet_v1.run_trunk(params, x, cfg16)
     cast = mobilenet_v1.run_trunk(mobilenet_v1.cast_params(params, torch.bfloat16), x, cfg16)
-    assert len(calls) == 20
+    assert len(calls) == 26
     assert uncast.dtype == torch.bfloat16
     assert torch.equal(uncast, cast)
 
 
 @pytest.mark.parametrize("case", ["x_f32", "x_nchw_memory", "c_in_12", "c_out_40",
                                   "c_in_2048", "taps_shape", "bias_bf16", "meta_device",
-                                  "rate_0", "rate_float"])
+                                  "rate_0", "rate_float", "stride_0", "stride_3",
+                                  "stride_float", "stride_2_rate_2", "stride_2_c_in_1024"])
 def test_wrapper_rejects(case):
     x, dw, dw_b, pw, pw_b = _inputs(2, 1, 5, 7, 16, 32)
     args = list(_torch_args(x, dw, dw_b, pw, pw_b))
     if case.startswith("rate"):
         with pytest.raises(ValueError, match="rate"):
             sepconv.sepconv(*args, rate=0 if case == "rate_0" else 2.0)
+        return
+    if case.startswith("stride"):
+        kwargs = {"stride_0": dict(stride=0), "stride_3": dict(stride=3),
+                  "stride_float": dict(stride=2.0), "stride_2_rate_2": dict(stride=2, rate=2),
+                  "stride_2_c_in_1024": dict(stride=2)}[case]
+        if case == "stride_2_c_in_1024":   # C_in 1024 runs at stride 1 only
+            args = list(_torch_args(*_inputs(2, 1, 5, 7, 1024, 32)))
+            assert sepconv.sepconv(*args).shape == (1, 5, 7, 32)
+        with pytest.raises(ValueError, match="stride"):
+            sepconv.sepconv(*args, **kwargs)
         return
     if case == "x_f32":
         args[0] = args[0].float()
@@ -285,32 +379,60 @@ def test_dilated_kernel_matches_plain_on_card(cuda, b, h, w, c_in, c_out, rate):
 
 
 @pytest.mark.cuda
-def test_op_without_rate_runs_at_rate_1(cuda):   # noqa: F811
-    """The op as programs exported before it took a rate call it: five
-    tensors, no rate. It runs at rate 1, bitwise the wrapper's result."""
-    args = _torch_args(*_inputs(8, 2, 17, 23, 256, 256), device=cuda)
-    old = torch.ops.posenet_tpu_torch.sepconv.default(*args)
-    new = sepconv.sepconv(*args, rate=1)
+@pytest.mark.parametrize("b,h,w,c_in,c_out", [
+    # layers 2, 4 and 6 of m101 at 513x513 (input maps), B=2 and 3, so the
+    # last pixel tile is ragged
+    (2, 257, 257, 64, 128), (3, 129, 129, 128, 256), (3, 65, 65, 256, 512),
+    # m101 s32's layer 12; m50's and m75's layers 2, 4 and 6; the s8 720p
+    # cell's layers 2 and 4 (input maps)
+    (2, 33, 33, 512, 1024), (2, 257, 257, 32, 64), (2, 129, 129, 64, 128),
+    (2, 65, 65, 128, 256), (2, 257, 257, 48, 96), (2, 129, 129, 96, 192),
+    (2, 65, 65, 192, 384), (2, 361, 641, 64, 128), (2, 181, 321, 128, 256),
+    # one block with a ragged tile, even sides, the BN = 16 fallbacks
+    (1, 9, 9, 512, 1024), (1, 16, 22, 64, 128), (2, 17, 13, 64, 48), (1, 10, 12, 128, 80),
+    (1, 11, 9, 256, 112)])
+def test_strided_kernel_matches_plain_on_card(cuda, b, h, w, c_in, c_out):   # noqa: F811
+    args = _torch_args(*_inputs(11, b, h, w, c_in, c_out), device=cuda)
+    before, strided = sepconv.launches, sepconv.strided_launches
+    got = sepconv.sepconv(*args, stride=2)
     torch.cuda.synchronize()
-    assert torch.equal(old, new)
-    assert not torch.equal(old, sepconv.sepconv(*args, rate=2))
+    assert (sepconv.launches, sepconv.strided_launches) == (before + 1, strided + 1)
+    assert tuple(got.shape) == (b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c_out)
+    ref = sepconv.sepconv_reference(*args, 1, 2)
+    assert_bf16_close(got.float().cpu().numpy(), ref.float().cpu().numpy())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stride,launches", [(16, 10), (8, 11)])
-def test_bf16_trunk_on_card_runs_k2(cuda, stride, launches):   # noqa: F811
-    """An m101 bf16 forward launches K2 10 times at s16 (layer 13 at rate
-    2) and 11 times at s8 (layers 7-13 dilated), and its heads stay within
-    the bf16 trunk's 2e-3 of the CPU's (tests/test_torch_mobilenet.py)."""
+def test_op_without_rate_runs_at_rate_1(cuda):   # noqa: F811
+    """The op as programs exported before it took a rate and a stride call
+    it: five tensors, no rate, no stride. It runs at rate 1 and stride 1,
+    bitwise the wrapper's result."""
+    args = _torch_args(*_inputs(8, 2, 17, 23, 256, 256), device=cuda)
+    old = torch.ops.posenet_tpu_torch.sepconv.default(*args)
+    new = sepconv.sepconv(*args, rate=1, stride=1)
+    torch.cuda.synchronize()
+    assert torch.equal(old, new)
+    assert not torch.equal(old, sepconv.sepconv(*args, rate=2))
+    assert sepconv.sepconv(*args, stride=2).shape == (2, 9, 12, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,launches,strided", [(16, 13, 3), (8, 13, 2)])
+def test_bf16_trunk_on_card_runs_k2(cuda, stride, launches, strided):   # noqa: F811
+    """An m101 bf16 forward launches K2 13 times at s16 (layers 2, 4 and 6
+    at stride 2, layer 13 at rate 2) and 13 times at s8 (layers 2 and 4 at
+    stride 2, 7-13 dilated), and its heads stay within the bf16 trunk's
+    2e-3 of the CPU's (tests/test_torch_mobilenet.py)."""
     cfg = ModelConfig(model_id=101, output_stride=stride, compute_dtype=torch.bfloat16)
     params = mobilenet_v1.init_params(torch.Generator().manual_seed(5), cfg)
     x = torch.from_numpy(np.random.RandomState(5).uniform(-1, 1, (2, 65, 65, 3))
                          .astype(np.float32))
     ref = mobilenet_v1.forward(mobilenet_v1.cast_params(params, torch.bfloat16), x, cfg)
-    before = sepconv.launches
+    before = sepconv.launches, sepconv.strided_launches
     got = mobilenet_v1.forward(mobilenet_v1.cast_params(params, torch.bfloat16, cuda),
                                x.to(cuda), cfg)
     torch.cuda.synchronize()
-    assert sepconv.launches == before + launches
+    assert (sepconv.launches, sepconv.strided_launches) == (before[0] + launches,
+                                                            before[1] + strided)
     for k in ref:
         np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), atol=2e-3, rtol=0)

@@ -40,8 +40,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # launches and stem launches of one forward); a new cell fails until it
 # is added here.
 CELLS = {
-    'm101-s16.offline-b256': (256, (513, 513), (33, 33), 10, 0),
-    'm101-s8.offline-720p-b32': (32, (721, 1281), (91, 161), 11, 0),
+    'm101-s16.offline-b256': (256, (513, 513), (33, 33), 13, 0),
+    'm101-s8.offline-720p-b32': (32, (721, 1281), (91, 161), 13, 0),
     'r50-s16.offline-b256': (256, (513, 513), (33, 33), 0, 1),
 }
 
@@ -89,10 +89,11 @@ def test_facade_matches_jax():
 def test_cell_kernel_shapes(cell):
     """The launches `chip_smoke.py` times in a cell: in an m101 forward K2
     on every layer the port's bf16 trunk runs it on (`uses_sepconv`), at
-    the layer's widths, map and dilation rate (at s16 layer 13 at rate 2;
-    at s8 layers 7-12 at rate 2 and 13 at rate 4); the stem once in a
-    ResNet50 forward on the frames; K1 once on the heads' grid with the
-    cell's 128 candidates; all at the cell's batch."""
+    the layer's widths, input and output maps, stride and dilation rate
+    (at s16 layers 2, 4 and 6 at stride 2, layer 13 at rate 2; at s8
+    layers 2 and 4 at stride 2, 7-12 at rate 2 and 13 at rate 4); the stem
+    once in a ResNet50 forward on the frames; K1 once on the heads' grid
+    with the cell's 128 candidates; all at the cell's batch."""
     batch, (height, width), grid, n_k2, n_stem = CELLS[cell]
     launches = chip_smoke.cell_kernel_shapes(cell)
     assert {s['batch'] for s in launches} == {batch}
@@ -108,29 +109,58 @@ def test_cell_kernel_shapes(cell):
     cfg = ModelConfig(101, stride, compute_dtype=torch.bfloat16)
     plan = [layer for layer in mobilenet_v1.stride_plan(101, stride)
             if mobilenet_v1.uses_sepconv(layer, cfg)]
-    assert [(s['layer'], s['c_in'], s['c_out'], s['rate']) for s in k2] == [
-        (layer['block_id'], layer['inp'], layer['outp'], layer['rate']) for layer in plan]
+    assert [(s['layer'], s['c_in'], s['c_out'], s['stride'], s['rate']) for s in k2] == [
+        (layer['block_id'], layer['inp'], layer['outp'], layer['stride'], layer['rate'])
+        for layer in plan]
     assert [(s['h'], s['w']) for s in k2] == [
         ((height - 1) // layer['cumulative_stride'] + 1,
          (width - 1) // layer['cumulative_stride'] + 1) for layer in plan]
+    assert [(s['h_in'], s['w_in']) for s in k2] == [
+        ((height - 1) // (layer['cumulative_stride'] // layer['stride']) + 1,
+         (width - 1) // (layer['cumulative_stride'] // layer['stride']) + 1) for layer in plan]
     dilated = {s['layer']: s['rate'] for s in k2 if s['rate'] > 1}
     assert dilated == ({13: 2} if stride == 16 else {7: 2, 8: 2, 9: 2, 10: 2, 11: 2, 12: 2,
                                                      13: 4})
+    strided = [s['layer'] for s in k2 if s['stride'] == 2]
+    assert strided == ([2, 4, 6] if stride == 16 else [2, 4])
 
 
 @pytest.mark.parametrize('cell', ['m101-s16.offline-b256', 'm101-s8.offline-720p-b32'])
 def test_k2_bounds_are_the_yardsticks(cell):
-    """The K2 bounds `chip_smoke.py` prints sum, over a cell's launches, to
-    the bound `k2_roofline.offline` divides by."""
+    """The K2 bounds `chip_smoke.py` prints sum, over a cell's stride-1
+    launches, to the bound `k2_roofline.offline` divides by."""
     assert chip_smoke.k2_bound_ms is yardstick.k2_bound_ms
-    launches = [s for s in chip_smoke.cell_kernel_shapes(cell) if s['kernel'] == 'K2']
-    tool = sum(chip_smoke.k2_bound_ms(s['batch'], s['h'], s['w'], s['c_in'], s['c_out'])
-               for s in launches)
+    launches = [s for s in chip_smoke.cell_kernel_shapes(cell)
+                if s['kernel'] == 'K2' and s['stride'] == 1]
+    tool = sum(chip_smoke.k2_launch_bound_ms(s) for s in launches)
     c = harness.load_cell(cell)
     batch, height, width = (c.traffic[k] for k in ('batch', 'height', 'width'))
     want = sum(yardstick.k2_bound_ms(batch, *layer) for layer in yardstick.k2_layers(
         c.config['model']['model_id'], c.config['model']['output_stride'], height, width))
     assert tool == pytest.approx(want, rel=1e-12) and tool > 0
+
+
+@pytest.mark.parametrize('cell,bounds', [
+    ('m101-s16.offline-b256', {2: 0.9716, 4: 0.4909, 6: 0.2506}),
+    ('m101-s8.offline-720p-b32', {2: 0.4250, 4: 0.2138})])
+def test_k2_stride2_bounds_read_the_input_at_its_size(cell, bounds):
+    """A stride-2 K2 launch's bound: its input (the previous layer's map,
+    four times the output's pixels) read once and its output written once
+    at the yardstick's HBM peak, which takes longer than its products at
+    its bf16 and float32 peaks. At the output's size it would be
+    `yardstick.k2_bound_ms`, which reads the input at the output's size."""
+    assert chip_smoke.F32_FLOPS == yardstick.F32_FLOPS
+    strided = [s for s in chip_smoke.cell_kernel_shapes(cell)
+               if s['kernel'] == 'K2' and s['stride'] == 2]
+    assert {s['layer']: round(chip_smoke.k2_launch_bound_ms(s), 4) for s in strided} == bounds
+    for s in strided:
+        b, h, w, h_in, w_in, c_in, c_out = (s[k] for k in (
+            'batch', 'h', 'w', 'h_in', 'w_in', 'c_in', 'c_out'))
+        extra_ms = 2 * b * (h_in * w_in - h * w) * c_in / yardstick.HBM_BYTES_S * 1e3
+        assert chip_smoke.k2_launch_bound_ms(s) == pytest.approx(
+            yardstick.k2_bound_ms(b, h, w, c_in, c_out) + extra_ms, rel=1e-12)
+        assert chip_smoke.k2_launch_bound_ms(dict(s, h_in=h, w_in=w)) == pytest.approx(
+            yardstick.k2_bound_ms(b, h, w, c_in, c_out), rel=1e-12)
 
 
 def test_stem_bound_from_the_yardsticks_peaks():

@@ -16,11 +16,12 @@ flags into posenet_tpu_torch/_build/k2_phases/:
                        barriers and epilogue stores
   skeleton_no_weights  the skeleton without the weight copies
 The cut variants compute wrong outputs by design; only `kernel` is
-checked, at rate 1 and at the dilated layers' rates. Prints the card's
-name and power limit, one line per shape of a cell's layers (the variants
-timed in turns, forward then backward, mean of both, beside the layer's
-bound `yardstick.k2_bound_ms`; a shape timed once for all the layers that
-have it), and the sums over each cell's launches.
+checked, at rate 1, at the dilated layers' rates and at stride 2. Prints
+the card's name and power limit, one line per shape of a cell's layers
+(the variants timed in turns, forward then backward, mean of both, beside
+the layer's bound `chip_smoke.k2_launch_bound_ms`; a shape timed once for
+all the layers that have it), and the sums over each cell's launches, the
+stride-2 layers' among them.
 Imports nothing of JAX.
 """
 
@@ -38,7 +39,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-from benchmarks.yardstick import k2_bound_ms  # noqa: E402
 from posenet_tpu_torch.ops import _build, sepconv  # noqa: E402
 
 SOURCE = os.path.join(REPO, 'posenet_tpu_torch', 'csrc', 'sepconv.cu')
@@ -76,17 +76,18 @@ def build(name: str) -> str:
 
 def bind(lib: str):
     fn = ctypes.CDLL(lib).posenet_sepconv
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(fn, args, rate=1):
+def launch(fn, args, rate=1, stride=1):
     x, taps, dw_b, pw_w, pw_b = args
     b, h, w, c_in = x.shape
-    out = torch.empty((b, h, w, pw_w.shape[0]), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((b, *sepconv.out_hw(h, w, stride), pw_w.shape[0]), dtype=torch.bfloat16,
+                      device=x.device)
     err = fn(x.data_ptr(), taps.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
-             pw_b.data_ptr(), out.data_ptr(), b, h, w, c_in, pw_w.shape[0], rate,
+             pw_b.data_ptr(), out.data_ptr(), b, h, w, c_in, pw_w.shape[0], rate, stride,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f'launch failed: cudaError {err}')
@@ -104,40 +105,41 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         fns = {name: bind(lib) for name, lib in zip(VARIANTS, pool.map(build, VARIANTS))}
-    layers_of = {}   # (cell, shape) -> the cell's layers of that shape
+    layers_of = {}   # (cell, shape) -> the cell's launches of that shape
     for cell in chip_smoke.benchmark_cells():
         for s in chip_smoke.cell_kernel_shapes(cell):
             if s['kernel'] == 'K2':
-                shape = tuple(s[k] for k in ('batch', 'h', 'w', 'c_in', 'c_out', 'rate'))
-                layers_of.setdefault((cell, shape), []).append(s['layer'])
-    for i, (_, (_, h, w, c_in, c_out, rate)) in enumerate(layers_of):
+                shape = tuple(s[k] for k in ('batch', 'h_in', 'w_in', 'c_in', 'c_out', 'rate',
+                                             'stride'))
+                layers_of.setdefault((cell, shape), []).append(s)
+    for i, (_, (_, h, w, c_in, c_out, rate, stride)) in enumerate(layers_of):
         args = chip_smoke.k2_inputs(2, h, w, c_in, c_out, i, dev)
-        ref = sepconv.sepconv_reference(*args, rate).float()
-        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
-        got = launch(fns['kernel'], args, rate).float()
-        if not bool(((got - ref).abs() <= ulp.clamp_min(2.0 ** -16)).all()):
+        if not chip_smoke.k2_close(launch(fns['kernel'], args, rate, stride), args, rate,
+                                   stride)[0]:
             raise SystemExit(f'k2_phases: the kernel differs from its plain version at '
-                             f'{h}x{w} {c_in}->{c_out} rate {rate}')
+                             f'{h}x{w} {c_in}->{c_out} rate {rate} stride {stride}')
     totals = {}
-    for i, ((cell, (b, h, w, c_in, c_out, rate)), layers) in enumerate(layers_of.items()):
+    for i, ((cell, (b, h, w, c_in, c_out, rate, stride)), same) in enumerate(layers_of.items()):
         args = chip_smoke.k2_inputs(b, h, w, c_in, c_out, 100 + i, dev)
         runs = {}
         for name in list(fns) + list(fns)[::-1]:
             runs.setdefault(name, []).append(
-                chip_smoke.cuda_ms(lambda: launch(fns[name], args, rate), 20))
+                chip_smoke.cuda_ms(lambda: launch(fns[name], args, rate, stride), 20))
         ms = {name: sum(v) / len(v) for name, v in runs.items()}
-        ms['bound'] = k2_bound_ms(b, h, w, c_in, c_out)
-        total = totals.setdefault(cell, dict.fromkeys(ms, 0.0))
-        for name, t in ms.items():
-            total[name] += len(layers) * t
+        ms['bound'] = chip_smoke.k2_launch_bound_ms(same[0])
+        parts = ('the K2 launches of one forward', 'its stride-2 K2 launches')
+        for part in parts[:2 if stride > 1 else 1]:
+            total = totals.setdefault((cell, part), dict.fromkeys(ms, 0.0))
+            for name, t in ms.items():
+                total[name] += len(same) * t
+        layers = [s['layer'] for s in same]
         print(f'{cell} layer{"s" * (len(layers) > 1)} {", ".join(map(str, layers))} b{b} '
-              f'{h}x{w} {c_in}->{c_out} rate {rate}: ' +
+              f'{h}x{w} {c_in}->{c_out} rate {rate} stride {stride}: ' +
               ', '.join(f'{name} {t:.4f} ms a layer' for name, t in ms.items()), flush=True)
         del args
         torch.cuda.empty_cache()
-    for cell, total in totals.items():
-        print(f'{cell}, the K2 launches of one forward: ' +
-              ', '.join(f'{name} {t:.4f} ms' for name, t in total.items()))
+    for (cell, part), total in totals.items():
+        print(f'{cell}, {part}: ' + ', '.join(f'{name} {t:.4f} ms' for name, t in total.items()))
     return 0
 
 
